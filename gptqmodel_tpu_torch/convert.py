@@ -1,8 +1,9 @@
 """The JAX package's params tree and ModelSpec, as the port's.
 
 The tests build a model once with the JAX package and hand the same arrays to
-both packages through these functions. They read the JAX objects by their
-attributes and import nothing of the JAX package.
+both packages through these functions: packed trees (JAX ``QuantLinear``
+leaves) and dense ones, such as a layer about to be quantized. They read the
+JAX objects by their attributes and import nothing of the JAX package.
 """
 
 from __future__ import annotations

@@ -1,15 +1,18 @@
-"""Checkpoint reader -> params tree, for GPTQ v1 llama checkpoints.
+"""Checkpoint reader -> params tree, for llama checkpoints, dense or GPTQ v1.
 
 The llama subset of the JAX package's ``models/loader.py``: a sharded
 safetensors checkpoint becomes nested dicts that mirror the HF tensor names
 (decoder layers as a list), dense tensors as they are stored and packed
 modules as ``QuantLinear``, with the v1 zero points converted to v2 at load.
-Each tensor moves to ``device`` as it is read.
+Each tensor moves to ``device`` as it is read. ``layer_filter`` and
+``skip_layers`` stream an unquantized checkpoint one decoder layer at a time,
+for quantization.
 """
 
 from __future__ import annotations
 
 import json
+import re
 from pathlib import Path
 from typing import Iterable
 
@@ -52,6 +55,7 @@ class CheckpointReader:
 
 
 _QUANT_LEAVES = {"qweight", "qzeros", "scales"}
+_LAYER_RE = re.compile(r"^model\.layers\.(\d+)\.(.*)$")
 
 
 def _insert(tree: dict, parts: list[str], value):
@@ -62,14 +66,24 @@ def _insert(tree: dict, parts: list[str], value):
 
 
 def build_params_tree(reader: CheckpointReader, qcfg: QuantizeConfig | None,
-                      device: torch.device) -> dict:
-    """Materialize the params tree on ``device``."""
+                      device: torch.device, layer_filter: int | None = None,
+                      skip_layers: bool = False) -> dict:
+    """Materialize the params tree on ``device``. ``layer_filter=i`` loads
+    decoder layer ``i`` alone, its tree rooted at the layer;
+    ``skip_layers=True`` loads everything but the decoder layers."""
     modules: dict[str, dict[str, str]] = {}
     for name in reader.names():
         mod, _, leaf = name.rpartition(".")
         modules.setdefault(mod, {})[leaf] = name
     tree: dict = {}
     for mod_path, leaves in modules.items():
+        m = _LAYER_RE.match(mod_path)
+        if m is not None and skip_layers:
+            continue
+        if layer_filter is not None:
+            if m is None or int(m.group(1)) != layer_filter:
+                continue
+            mod_path = m.group(2)
         parts = mod_path.split(".") if mod_path else []
         if _QUANT_LEAVES.issubset(leaves):
             if qcfg is None:

@@ -7,6 +7,12 @@ attention logits in float32, probabilities cast to the activation type.
 Attention is plain torch ops, as the reference's is plain XLA. The port
 updates the KV cache in place, which the JAX package cannot: it saves a copy
 of the cache on every step.
+
+Quantization records module inputs through taps (the JAX package's
+``_tap``): ``decoder_layer(..., taps={}, tap_paths={...})`` stores the input
+of each named module in ``taps`` and raises ``TapsComplete`` once all are
+recorded, so the forward past the last tap never runs (XLA drops that work
+in the reference); without taps nothing changes.
 """
 
 from __future__ import annotations
@@ -24,6 +30,17 @@ from gptqmodel_tpu_torch.ops.registry import qlinear_forward, qmlp_forward
 Params = dict[str, Any]
 
 NEG = float(np.finfo(np.float32).min)
+
+
+class TapsComplete(Exception):
+    """Every requested tap is recorded; the rest of the forward is not needed."""
+
+
+def _tap(taps, tap_paths, path: str, x: torch.Tensor) -> None:
+    if taps is not None and path in tap_paths:
+        taps[path] = x
+        if len(taps) == len(tap_paths):
+            raise TapsComplete
 
 
 def apply_linear(p, x: torch.Tensor) -> torch.Tensor:
@@ -115,13 +132,15 @@ def cache_write_read(cache: dict, k, v, dtype):
 
 
 def attention(spec: ModelSpec, ap: Params, h: torch.Tensor, cos, sin, attn_bias,
-              cache: Optional[dict] = None):
+              cache: Optional[dict] = None, taps=None, tap_paths=frozenset()):
     B, T, _ = h.shape
     nh, nkv, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
     if "qkv_proj" in ap:
         qf, kf, vf = torch.split(apply_linear(ap["qkv_proj"], h),
                                  [nh * hd, nkv * hd, nkv * hd], dim=-1)
     else:
+        for name in ("q_proj", "k_proj", "v_proj"):
+            _tap(taps, tap_paths, f"self_attn.{name}", h)
         qf = apply_linear(ap["q_proj"], h)
         kf = apply_linear(ap["k_proj"], h)
         vf = apply_linear(ap["v_proj"], h)
@@ -141,6 +160,7 @@ def attention(spec: ModelSpec, ap: Params, h: torch.Tensor, cos, sin, attn_bias,
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bgrqk,bgkd->bgrqd", probs, v.to(q.dtype))
     out = out.reshape(B, nh, T, hd).transpose(1, 2).reshape(B, T, nh * hd)
+    _tap(taps, tap_paths, "self_attn.o_proj", out)
     return apply_linear(ap["o_proj"], out), cache
 
 
@@ -150,26 +170,35 @@ def _act(name: str):
     return F_.silu
 
 
-def gated_mlp(spec: ModelSpec, mp: Params, h: torch.Tensor) -> torch.Tensor:
+def gated_mlp(spec: ModelSpec, mp: Params, h: torch.Tensor, taps=None,
+              tap_paths=frozenset()) -> torch.Tensor:
     if "gate_up_proj" in mp:
-        if mp.get("_fused"):  # optimize.enable_fused_mlp
+        if mp.get("_fused") and taps is None:  # optimize.enable_fused_mlp
             y = qmlp_forward(mp["gate_up_proj"], mp["down_proj"], h, spec.hidden_act)
             if y is not None:
                 return y
         g, u = torch.chunk(apply_linear(mp["gate_up_proj"], h), 2, dim=-1)
     else:
+        _tap(taps, tap_paths, "mlp.gate_proj", h)
+        _tap(taps, tap_paths, "mlp.up_proj", h)
         g = apply_linear(mp["gate_proj"], h)
         u = apply_linear(mp["up_proj"], h)
-    return apply_linear(mp["down_proj"], _act(spec.hidden_act)(g) * u)
+    inner = _act(spec.hidden_act)(g) * u
+    _tap(taps, tap_paths, "mlp.down_proj", inner)
+    return apply_linear(mp["down_proj"], inner)
 
 
 def decoder_layer(spec: ModelSpec, lp: Params, h, cos, sin, attn_bias,
-                  cache: Optional[dict] = None):
+                  cache: Optional[dict] = None, taps=None, tap_paths=frozenset()):
+    """One llama layer: ``(h', cache)``. With ``taps`` (a dict) it records the
+    inputs of the modules named in ``tap_paths`` and raises ``TapsComplete``
+    when the last is recorded."""
     normed = rms_norm(h, lp["input_layernorm"]["weight"], spec.rms_norm_eps)
-    attn_out, cache = attention(spec, lp["self_attn"], normed, cos, sin, attn_bias, cache)
+    attn_out, cache = attention(spec, lp["self_attn"], normed, cos, sin, attn_bias, cache,
+                                taps, tap_paths)
     h = h + attn_out
     normed2 = rms_norm(h, lp["post_attention_layernorm"]["weight"], spec.rms_norm_eps)
-    return h + gated_mlp(spec, lp["mlp"], normed2), cache
+    return h + gated_mlp(spec, lp["mlp"], normed2, taps, tap_paths), cache
 
 
 def model_layers(params: Params) -> list:

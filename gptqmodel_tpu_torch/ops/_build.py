@@ -11,7 +11,7 @@ Importing this module builds nothing, so the package imports on a machine
 with no card and no ``nvcc``.
 
 ``LAUNCHES`` counts, for each kernel, the calls of its wrapper that launched
-it: one per product, however many CUDA launches the product takes.
+it: one per product or solve, however many CUDA launches it takes.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ LIB_NAME = "libgptqmodel_tpu_torch.so"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES = {"qmatmul": 0, "qmlp": 0}
+LAUNCHES = {"qmatmul": 0, "qmlp": 0, "gptq_whole_solve": 0, "gptq_block_inner": 0}
 # what the last build did: commands, seconds, and the ptxas lines per source
 BUILD_INFO: dict = {}
 
@@ -107,6 +107,10 @@ def lib() -> ctypes.CDLL:
             handle.gqt_qmatmul.restype = i
             handle.gqt_qmlp.argtypes = [vp, i, i, i, vp, vp, f, vp, vp, f, i, i, vp, vp, vp]
             handle.gqt_qmlp.restype = i
+            handle.gqt_gptq_whole_solve.argtypes = [vp] * 4 + [i] * 4 + [f, i] + [vp] * 6
+            handle.gqt_gptq_whole_solve.restype = i
+            handle.gqt_gptq_block_inner.argtypes = [vp] * 4 + [i, f] + [vp] * 5
+            handle.gqt_gptq_block_inner.restype = i
             _lib = handle
         return _lib
 

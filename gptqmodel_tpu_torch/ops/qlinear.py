@@ -49,33 +49,40 @@ class QuantLinear:
         )
 
 
+def _tensor(a) -> torch.Tensor:
+    return a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
+
+
 def make_quant_linear(
     *,
-    Q: np.ndarray,  # int codes [out, in]
-    scales: np.ndarray,  # [groups, out]
-    zeros: np.ndarray,  # [groups, out] integer zero points (v2 semantics)
-    g_idx: np.ndarray | None,
-    bias: np.ndarray | None,
+    Q,  # int codes [out, in]
+    scales,  # [groups, out]
+    zeros,  # [groups, out] integer zero points (v2 semantics)
+    g_idx,  # [in] or None
+    bias,
     bits: int,
     group_size: int,
     sym: bool = True,
     v1: bool = False,
     device: str | torch.device = "cuda",
 ) -> QuantLinear:
-    """Pack integer codes and group parameters on the host into a
-    QuantLinear on ``device``."""
+    """Pack integer codes and group parameters (numpy arrays, or tensors,
+    packed where they lie) into a QuantLinear on ``device``."""
+    Q = _tensor(Q)
     out_f, in_f = Q.shape
     g = in_f if group_size in (-1, None) else group_size
-    qweight = packing.pack_qweight(torch.from_numpy(np.ascontiguousarray(Q.T)), bits)
-    qzeros = packing.pack_qzeros(torch.from_numpy(np.asarray(zeros)), bits, v1=v1)
-    if g_idx is not None and np.array_equal(np.asarray(g_idx), np.arange(in_f) // g):
-        g_idx = None
+    qweight = packing.pack_qweight(Q.T.contiguous(), bits)
+    qzeros = packing.pack_qzeros(_tensor(zeros), bits, v1=v1)
+    if g_idx is not None:
+        g_idx = _tensor(g_idx).to(torch.int32)
+        if torch.equal(g_idx.long(), torch.arange(in_f, device=g_idx.device) // g):
+            g_idx = None
     return QuantLinear(
         qweight=qweight,
         qzeros=qzeros,
-        scales=torch.from_numpy(np.asarray(scales, dtype=np.float16)),
-        g_idx=None if g_idx is None else torch.from_numpy(np.asarray(g_idx, np.int32)),
-        bias=None if bias is None else torch.from_numpy(np.asarray(bias)),
+        scales=_tensor(scales).to(torch.float16),
+        g_idx=g_idx,
+        bias=None if bias is None else _tensor(bias),
         bits=bits, group_size=group_size, in_features=in_f, out_features=out_f,
         sym=sym, v1=v1,
     ).to(resolve_device(device))

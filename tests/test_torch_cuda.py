@@ -14,9 +14,17 @@ import torch
 from gptqmodel_tpu_torch import GPTQModel
 from gptqmodel_tpu_torch.models import transformer
 from gptqmodel_tpu_torch.ops import _build, registry
+from gptqmodel_tpu_torch.ops.gptq_solve import (
+    gptq_block_inner,
+    gptq_block_inner_plain,
+    gptq_whole_solve,
+    gptq_whole_solve_plain,
+)
 from gptqmodel_tpu_torch.ops.qmatmul import qmatmul, qmatmul_plain
 from gptqmodel_tpu_torch.ops.qmlp import qmlp, qmlp_plain
 from gptqmodel_tpu_torch.ops.registry import post_init_module
+from gptqmodel_tpu_torch.quantization.gptq import gptq_solve_core, hessian_inverse
+from gptqmodel_tpu_torch.quantization.quantizer import _minmax, _params_from_range
 from gptqmodel_tpu_torch.utils.testing import random_quant_linear, write_random_gptq_checkpoint
 
 pytestmark = pytest.mark.cuda
@@ -146,7 +154,8 @@ def test_facade_runs_the_kernels(cuda_device, tmp_path, monkeypatch):
     tokens = model.generate(ids, max_new_tokens=new)
     assert tokens.shape == (B, new) and ((tokens >= 0) & (tokens < 1024)).all()
     steps = new - 1
-    assert _build.LAUNCHES == {"qmatmul": 4 * L + 2 * L * steps, "qmlp": L * steps}
+    assert _build.LAUNCHES == {"qmatmul": 4 * L + 2 * L * steps, "qmlp": L * steps,
+                               "gptq_whole_solve": 0, "gptq_block_inner": 0}
 
     ids_t = torch.as_tensor(ids, device=cuda_device)
     with torch.inference_mode():
@@ -157,3 +166,75 @@ def test_facade_runs_the_kernels(cuda_device, tmp_path, monkeypatch):
     assert torch.isfinite(got).all()
     # bf16 activations: one-ulp flips of rounded products carried through 2 layers
     assert _rel(got, ref) <= 1e-2
+
+
+def _solve_case(seed, out_f, in_f, dev, rows=2048):
+    """W ~ N(0, 0.02) and the inverse factor of a Hessian of seeded
+    activations, as the quantize loop builds them."""
+    rng = np.random.default_rng(seed)
+    W = torch.from_numpy(rng.standard_normal((out_f, in_f), dtype=np.float32) * 0.02).to(dev)
+    X = torch.from_numpy(rng.standard_normal((rows, in_f), dtype=np.float32)).to(dev)
+    U, _ = hessian_inverse((2.0 / rows) * (X.T @ X), 0.01)
+    return W, U
+
+
+# the JAX package's tolerances for its K8 against the XLA scan
+# (tests/test_pallas_gptq.py): only the trailing product's f32 sums differ
+@pytest.mark.parametrize("out_f,in_f", [(72, 512), (4096, 4096)])
+@pytest.mark.parametrize("group_size,sym", [(128, True), (64, False), (16, True), (-1, True)])
+def test_gptq_whole_solve_matches_plain(cuda_device, out_f, in_f, group_size, sym):
+    W, U = _solve_case(out_f + group_size, out_f, in_f, cuda_device)
+    g = in_f if group_size == -1 else group_size
+    SP = ZP = None
+    if group_size == -1:  # per channel: static tables, as gptq_solve_core makes them
+        s, z = _params_from_range(*_minmax(W, sym), 15, sym)
+        SP, ZP = (t[:, None].expand(out_f, in_f).contiguous() for t in (s, z))
+    kw = dict(maxq=15, group_size=g, sym=sym)
+    before = _build.LAUNCHES["gptq_whole_solve"]
+    Q, Dq, L, s_out, z_out = gptq_whole_solve(W, U, SP, ZP, **kw)
+    Q2 = gptq_whole_solve(W, U, SP, ZP, **kw)[0]
+    rQ, rDq, rL, rs, rz = gptq_whole_solve_plain(W, U, SP, ZP, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["gptq_whole_solve"] == before + 2
+    assert torch.equal(Q, Q2)  # no atomics: the same codes every run
+    assert float((Q != rQ).float().mean()) < 2e-3
+    torch.testing.assert_close(Dq, rDq, rtol=1e-4, atol=2e-4)
+    assert abs(float(L.sum() / rL.sum()) - 1) < 1e-3
+    if SP is None:
+        torch.testing.assert_close(s_out, rs, rtol=1e-5, atol=0)
+        torch.testing.assert_close(z_out, rz, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("out_f", [40, 28672])
+def test_gptq_block_inner_matches_plain(cuda_device, out_f):
+    """The column loop rounds and orders as the plain version does: equal."""
+    W, U = _solve_case(out_f, out_f, 128, cuda_device)
+    s, z = _params_from_range(*_minmax(W, True), 15, True)
+    S, Z = (t[:, None].expand(out_f, 128).contiguous() for t in (s, z))
+    before = _build.LAUNCHES["gptq_block_inner"]
+    got = gptq_block_inner(W, U, S, Z, maxq=15)
+    ref = gptq_block_inner_plain(W, U, S, Z, maxq=15)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["gptq_block_inner"] == before + 1
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+def test_gptq_solve_routes_on_the_card(cuda_device, monkeypatch):
+    """K8 by default, K9 per block with GPTQ_TPU_SOLVER=pallas; any other
+    value, or a group outside K8's contract, raises: no plain path."""
+    W, U = _solve_case(9, 64, 512, cuda_device)
+    kw = dict(bits=4, group_size=128, sym=True)
+    _build.reset_counts()
+    mega = gptq_solve_core(W, U, **kw)
+    assert _build.LAUNCHES["gptq_whole_solve"] == 1
+    monkeypatch.setenv("GPTQ_TPU_SOLVER", "pallas")
+    blocks = gptq_solve_core(W, U, **kw)
+    assert _build.LAUNCHES["gptq_block_inner"] == 4
+    assert float((mega["Q"] != blocks["Q"]).float().mean()) < 2e-3
+    monkeypatch.setenv("GPTQ_TPU_SOLVER", "xla")
+    with pytest.raises(ValueError):
+        gptq_solve_core(W, U, **kw)
+    monkeypatch.delenv("GPTQ_TPU_SOLVER")
+    with pytest.raises(NotImplementedError):
+        gptq_solve_core(W, U, bits=4, group_size=256, sym=True)

@@ -21,6 +21,8 @@ def _imported_modules(path: Path) -> set[str]:
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_neither_jax_nor_the_jax_package(path):
+    """Every module of the port (the quantization path's too) and the smoke
+    script."""
     bad = {m for m in _imported_modules(path)
            if m.split(".")[0] in ("jax", "jaxlib", "gptqmodel_tpu")}
     assert not bad, f"{path.name} imports {sorted(bad)}"
@@ -30,6 +32,7 @@ def test_kernel_sources_target_hopper():
     from gptqmodel_tpu_torch.ops import _build
 
     assert "arch=compute_90a,code=sm_90a" in _build.ARCH_FLAGS
-    assert {p.name for p in _build.CSRC.glob("*.cu")} == {"qmatmul.cu", "qmlp.cu"}
+    assert {p.name for p in _build.CSRC.glob("*.cu")} == {"qmatmul.cu", "qmlp.cu",
+                                                           "gptq_solve.cu"}
     assert _build.BUILD_DIR.name == "build"
     assert "build/" in (ROOT / ".gitignore").read_text().split()
