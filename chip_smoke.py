@@ -48,11 +48,15 @@ Phases, each printing JSON lines on stdout:
    (``GPTQ_TPU_SOLVER=pallas``): per module, codes within 2e-3 of the K8
    run and the loss within 1e-3.
 
-Then the card's name and power limit, the ``{"kernels": [...]}`` line (K1
-and K2 per decode step at B = 8: K1 over qkv and o of every layer, K2 over
-every layer's MLP; K8 per quantized layer, one solve of each group; K9 per
-block, one block of each group) and, last, ``{"ok": true, "device":
-{...}}``. A failed check raises and exits non-zero. Without a CUDA device it
+Then the card's name and power limit, the ``{"kernels": [...]}`` line and,
+last, ``{"ok": true, "device":
+{...}}``. Each record of the kernels line names its units: ``launches``
+counts a whole run of the main path (``launches_per``: K1 and K2 the
+generate run, K8 the quantize run, K9 the one-layer quantize run through
+``GPTQ_TPU_SOLVER=pallas``), and the times are per ``ms_per``: K1 and K2 one
+decode step at B = 8 (K1 over qkv and o of every layer, K2 over every
+layer's MLP), K8 and K9 one quantized layer (K8 one solve of each group, K9
+each group's 128-column blocks). A failed check raises and exits non-zero. Without a CUDA device it
 exits 1 and prints no result. The records also go to
 ``chiprun_out/chip_smoke/chip_smoke.json``. Float32 products run in full
 float32: TF32 is off for matmuls and cuDNN.
@@ -575,7 +579,7 @@ def main() -> int:
         k = timed(lambda i: gptq_block_inner(*blk[i], maxq=15), len(blk))
         b_ms, b_by = block_bound(out_f)
         case = {"kernel": "gptq_block_inner", "proj": proj, "out": out_f, "in": 128,
-                "equal": equal, "max_abs_err": max_err, "ms": k["ms"], "wall_ms": k["wall_ms"],
+                "blocks_per_layer": in_f // 128, "equal": equal, "max_abs_err": max_err, "ms": k["ms"], "wall_ms": k["wall_ms"],
                 "plain_ms": plain_ms, "plain_clock": "cuda events", "bound_ms": b_ms,
                 "bound_by": b_by, "library_ms": None,
                 "library": "null: no PyTorch call computes the GPTQ column loop",
@@ -755,9 +759,11 @@ def main() -> int:
                 "library_ms": (None if any(c["library_ms"] is None for c, _ in sel)
                                else total("library_ms"))}
 
-    def per_case(kernel: str) -> dict:
+    def per_layer(kernel: str) -> dict:
+        """One quantized layer's work: every case once, or each K9 block as
+        often as its group has blocks."""
         sel = [c for c in cases if c["kernel"] == kernel]
-        total = lambda key: sum(c[key] for c in sel)
+        total = lambda key: sum(c[key] * c.get("blocks_per_layer", 1) for c in sel)
         return {"max_abs_err": max(c["max_abs_err"] for c in sel), "ms": total("ms"),
                 "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
                 "bound_by": ("bytes" if all(c["bound_by"] == "bytes" for c in sel)
@@ -767,27 +773,29 @@ def main() -> int:
         {"name": "qmatmul (K1)", "route": "cuda",
          "source": "gptqmodel_tpu_torch/csrc/qmatmul.cu",
          "replaces": "gptqmodel_tpu/ops/pallas_qmatmul.py:198",
-         "launches": main_counts["qmatmul"],
+         "launches": main_counts["qmatmul"], "launches_per": "generate run",
+         "ms_per": "decode step",
          "max_abs_err": max(c["max_abs_err"] for c in cases if c["kernel"] == "qmatmul"),
          **per_step("qmatmul", [("qkv", L), ("o", L)])},
         {"name": "qmlp (K2)", "route": "cuda",
          "source": "gptqmodel_tpu_torch/csrc/qmlp.cu",
          "replaces": "gptqmodel_tpu/ops/pallas_qmlp.py:84",
-         "launches": main_counts["qmlp"],
+         "launches": main_counts["qmlp"], "launches_per": "generate run",
+         "ms_per": "decode step",
          "max_abs_err": max(c["max_abs_err"] for c in cases if c["kernel"] == "qmlp"),
          **per_step("qmlp", [("mlp", L)])},
-        # per quantized layer: one solve of each of the four groups
         {"name": "gptq_whole_solve (K8)", "route": "cuda",
          "source": "gptqmodel_tpu_torch/csrc/gptq_solve.cu",
          "replaces": "gptqmodel_tpu/ops/pallas_gptq.py:160",
          "launches": q_rec["quantize_counts"]["gptq_whole_solve"],
-         **per_case("gptq_whole_solve")},
-        # per block: one 128-column block of each of the four groups
+         "launches_per": f"quantize run of {q_rec['layers']} layers",
+         "ms_per": "quantized layer", **per_layer("gptq_whole_solve")},
         {"name": "gptq_block_inner (K9)", "route": "cuda",
          "source": "gptqmodel_tpu_torch/csrc/gptq_solve.cu",
          "replaces": "gptqmodel_tpu/ops/pallas_gptq.py:47",
          "launches": cq_rec["k9"]["counts"]["gptq_block_inner"],
-         **per_case("gptq_block_inner")},
+         "launches_per": f"quantize run of {cq_rec['layers']} layer",
+         "ms_per": "quantized layer", **per_layer("gptq_block_inner")},
     ]
     record["summary"] = summary
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1) + "\n")

@@ -33,7 +33,6 @@ from gptqmodel_tpu_torch.quantization.quantizer import find_params, find_params_
 
 log = logging.getLogger("gptqmodel_tpu_torch")
 
-DEFAULT_BLOCKSIZE = BLOCK
 MAX_DAMP_ATTEMPTS = 6
 
 
@@ -68,17 +67,16 @@ def _chol_inv_upper(H: torch.Tensor, damp: float):
     return torch.flip(Li, (0, 1)).contiguous(), ok
 
 
-def hessian_inverse(H: torch.Tensor, damp: float, damp_auto_increment: float = 0.0025,
-                    max_attempts: int = MAX_DAMP_ATTEMPTS):
+def hessian_inverse(H: torch.Tensor, damp: float, damp_auto_increment: float = 0.0025):
     """The damp ladder: ``(U, final damp)``; raises if no damp works."""
     cur = float(damp)
-    for _ in range(max_attempts):
+    for _ in range(MAX_DAMP_ATTEMPTS):
         U, ok = _chol_inv_upper(H, cur)
         if ok:
             return U, cur
         cur = cur + damp_auto_increment if damp_auto_increment > 0 else cur * 10
     raise np.linalg.LinAlgError(
-        f"Hessian not positive-definite after {max_attempts} damp attempts "
+        f"Hessian not positive-definite after {MAX_DAMP_ATTEMPTS} damp attempts "
         f"(final damp={cur})")
 
 
@@ -97,19 +95,17 @@ def _solver_backend(device: torch.device) -> str:
                      "default) or K9 ('pallas'); there is no interpret mode and no plain path")
 
 
-def gptq_solve_core(W, Hinv_u, SP=None, ZP=None, *, bits: int, group_size: int, sym: bool,
-                    blocksize: int = DEFAULT_BLOCKSIZE) -> dict:
+def gptq_solve_core(W, Hinv_u, SP=None, ZP=None, *, bits: int, group_size: int,
+                    sym: bool) -> dict:
     """Blocked GPTQ solve of ``W [out, in]`` float32 (permuted, dead columns
     zeroed) with ``Hinv_u`` the upper factor of the damped inverse Hessian.
     ``SP``/``ZP [out, in]``: static per-column tables. Returns Q (int32),
     Wq (= Dq), scales and zeros ``[G, out]`` (zeros with static tables, which
     the caller holds) and the per-column losses."""
-    if blocksize != BLOCK:
-        raise NotImplementedError(f"blocksize {blocksize}: the port's solve uses {BLOCK}")
     out_f, in_f = W.shape
     maxq = 2**bits - 1
     g = in_f if group_size in (-1, None) else group_size
-    B = blocksize
+    B = BLOCK
     if in_f % B:
         pad = B - in_f % B
         W = torch.nn.functional.pad(W, (0, pad))
@@ -119,7 +115,7 @@ def gptq_solve_core(W, Hinv_u, SP=None, ZP=None, *, bits: int, group_size: int, 
             SP = torch.nn.functional.pad(SP, (0, pad), value=1.0)
             ZP = torch.nn.functional.pad(ZP, (0, pad))
         return _solve_padded(W, Hinv_u, SP, ZP, in_f, bits=bits, group_size=group_size,
-                             sym=sym, blocksize=B)
+                             sym=sym)
     if not (g == in_f or (g <= B and B % g == 0) or (g > B and g % B == 0)):
         raise ValueError(f"group_size {g} incompatible with blocksize {B}")
     static = SP is not None
@@ -184,8 +180,7 @@ def _preprocess_dead(W: torch.Tensor, H: torch.Tensor):
 def gptq_quantize(W, H, *, bits: int, group_size: int, sym: bool, desc_act: bool = False,
                   damp_percent: float = 0.01,
                   damp_auto_increment: float = 0.0025, nsamples: int = 0,
-                  blocksize: int = DEFAULT_BLOCKSIZE, static_groups: bool = False
-                  ) -> GPTQResult:
+                  static_groups: bool = False) -> GPTQResult:
     """GPTQ of ``W [out, in]`` with the accumulated Hessian ``H [in, in]``
     (tensors or arrays; the solve runs on W's device). Handles dead columns,
     the activation-order permutation, static groups, the damp ladder, the
@@ -217,7 +212,7 @@ def gptq_quantize(W, H, *, bits: int, group_size: int, sym: bool, desc_act: bool
         SP = static_sz[0][col_group].T.contiguous()
         ZP = static_sz[1][col_group].T.contiguous()
 
-    kw = dict(bits=bits, group_size=group_size, sym=sym, blocksize=blocksize)
+    kw = dict(bits=bits, group_size=group_size, sym=sym)
     res = gptq_solve_core(W, U, SP, ZP, **kw)
 
     def _finite(r):
