@@ -22,7 +22,14 @@ Phases, each printing JSON lines on stdout:
    for the solves, whose plain versions launch thousands of small kernels)
    and of ``torch._weight_int4pack_mm`` (K1's yardstick, where torch has it),
    and the bound: the larger of bytes over 3.35 TB/s and operations over
-   989 TFLOP/s (bf16, K1 and K2) or 67 TFLOP/s (float32, K8 and K9).
+   989 TFLOP/s (bf16, K1 and K2) or 67 TFLOP/s (float32, K8 and K9). Then
+   the MoE kernels at Qwen3-30B-A3B's widths (D 2048, F 768, 128 experts,
+   top-8, g 128, 4-bit, symmetric), routed by seeded router logits: K10
+   (``qmoe_mlp_e2e``) at N = 1, 8 and 1024 tokens, twice each for equal bits,
+   K11 and K12 (``qmoe_mlp_matmul_dyn``, ``qmoe_mlp_matmul``) at N = 8 and
+   128, equal to each other, and K13 (``qmoe_matmul``) on gate|up and down
+   at N = 8 and 128; their bound counts the distinct routed experts' words
+   and scales, once each, and the routed rows' operations.
 3. ``slice``: a GPTQ v1 checkpoint at Llama-3-8B's published widths (4-bit,
    symmetric, group 128, dense lm_head; random weights from a seed, about
    5.7 GB) is written to a temporary directory under ``build/``, then
@@ -35,7 +42,7 @@ Phases, each printing JSON lines on stdout:
 4. ``compare``: the first 2 layers of that model at full width, the kernel
    path's logits against the plain versions' on the card, teacher-forced.
 5. ``quantize``: a random bf16 checkpoint at Llama-3-8B's published widths
-   and all 32 layers (16 GB) goes through ``GPTQModel.load(dir,
+   and 16 of its 32 layers (8 GB) goes through ``GPTQModel.load(dir,
    QuantizeConfig(bits=4, group_size=128, sym=True))``, ``.quantize(ids)``
    on 128 seeded rows of 512 tokens at batch 4, and ``.save(out)``; then
    ``GPTQModel.load(out).optimize().generate(ids[:8, :128], 16)``. Asserted:
@@ -47,16 +54,39 @@ Phases, each printing JSON lines on stdout:
    with K8 swapped for its plain version and once through K9
    (``GPTQ_TPU_SOLVER=pallas``): per module, codes within 2e-3 of the K8
    run and the loss within 1e-3.
+7. ``moe-slice``: a GPTQ v1 checkpoint at Qwen3-30B-A3B's published widths
+   and all 48 layers (4-bit, symmetric, group 128, dense router and
+   lm_head; random weights drawn on the card from a seed, about 17 GB) is
+   written under ``build/``, then ``GPTQModel.load(dir).optimize()
+   .generate(ids, 64)`` at B = 8, T = 128, bf16 KV. Asserted: 2 K1 (qkv, o)
+   and 1 K10 per layer in the prefill and in every decode step, no other
+   kernel. Printed: load s and peak memory, device memory, prefill ms,
+   decode ms per step, tokens/s and the device's busy share.
+8. ``compare-moe``: its first 2 layers, the kernel path against the plain
+   versions, teacher-forced: the plain path is fed the kernel path's tokens
+   and follows its routes, experts and weights (the router's bf16 logits
+   flip an expert at a near tie, or a weight by an ulp, and move a token's
+   logits more than the kernels do); logits within 1e-2, the count of
+   (token, layer) routes where the plain path's own router chose other
+   experts, and the largest change of its probabilities.
+9. ``moe-routes``: layer 0 stacked again under each ``GPTQ_TPU_QMOE_*``
+   setting and run at N = 8 and 1024 tokens: K10 (rt, the default; ic with
+   ``RT=0``), K11, K12, K13 and the dense fallback; each within 2e-2 of the
+   default, K10 (ic) within 2e-3 of K11, K11 equal to K12, and the kernel
+   each route reached (the slot paths take the dense fallback past 1024
+   routed rows).
 
 Then the card's name and power limit, the ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device":
 {...}}``. Each record of the kernels line names its units: ``launches``
 counts a whole run of the main path (``launches_per``: K1 and K2 the
 generate run, K8 the quantize run, K9 the one-layer quantize run through
-``GPTQ_TPU_SOLVER=pallas``), and the times are per ``ms_per``: K1 and K2 one
-decode step at B = 8 (K1 over qkv and o of every layer, K2 over every
-layer's MLP), K8 and K9 one quantized layer (K8 one solve of each group, K9
-each group's 128-column blocks). A failed check raises and exits non-zero. Without a CUDA device it
+``GPTQ_TPU_SOLVER=pallas``, K10 the moe generate run, K11-K13 the moe-routes
+run), and the times are per ``ms_per``: K1 and K2 one decode step at B = 8
+(K1 over qkv and o of every layer, K2 over every layer's MLP), K8 and K9 one
+quantized layer (K8 one solve of each group, K9 each group's 128-column
+blocks), K10 one decode step at B = 8 over the 48 MoE layers, K11-K13 one
+MoE layer at N = 8 tokens (K13 gate|up and down). A failed check raises and exits non-zero. Without a CUDA device it
 exits 1 and prints no result. The records also go to
 ``chiprun_out/chip_smoke/chip_smoke.json``. Float32 products run in full
 float32: TF32 is off for matmuls and cuDNN.
@@ -99,9 +129,35 @@ K8_MISMATCH, K8_DQ_RTOL, K8_DQ_ATOL, K8_SCALE_RTOL, K8_LOSS_RTOL = 2e-3, 1e-4, 2
 # the solve's groups at Llama-3-8B's widths: out x in, g = 128, 4-bit, sym
 SOLVE_SHAPES = {"qkv": (6144, 4096), "o": (4096, 4096), "gate_up": (28672, 4096),
                 "down": (4096, 14336)}
-QUANT_LAYERS = 32  # the quantize phase's depth: all of Llama-3-8B's layers
+# the quantize phase's depth: 16 of Llama-3-8B's 32 layers, cut so that the
+# whole script, the 48-layer MoE slice included, stays near 10 minutes
+QUANT_LAYERS = 16
 Q_ROWS, Q_T, Q_BATCH = 128, 512, 4  # calibration: seeded token ids
 GEN_B, GEN_T, GEN_NEW = 8, 128, 16  # the quantized model's generate
+# K10 at decode B = 1, B = 8 and the prefill of 8 x 128 tokens; K11-K13 at
+# decode B = 8 and at 128 tokens (1024 routed rows, the slot paths' bound)
+MOE_E2E_NS, MOE_SLOT_NS = (1, 8, 1024), (8, 128)
+# each MoE kernel against its plain version: the same exact products, f32
+# sums in another order; K10-K12 also round inner to bf16 in both
+K10_TOL = SLOT_MLP_TOL = 2e-3
+K13_TOL = 1e-3
+# the reference's own tolerance across MoE routes (rt against ic differ by
+# the bf16 rounding of (q - zc)*s, tests/test_pallas_qmoe.py); K10 and K11 on
+# one contract, with K11's y kept in float32, differ only in where the
+# combine adds
+ROUTE_TOL, K10_IC_VS_K11 = 2e-2, 2e-3
+# route -> GPTQ_TPU_QMOE_* switches, and what each reaches at N = 8 and at
+# N = 1024 tokens (8192 routed rows: past the slot paths' 1024). "K11 f32"
+# keeps the slot path's y in float32 (GPTQ_TPU_QMOE_BF16=0), as K10 does
+# before its combine: the pair that holds K10 (ic) against K11.
+MOE_ROUTES = {"K10 rt": {}, "K10 ic": {"RT": "0"}, "K11": {"RT": "0", "E2E": "0"},
+              "K11 f32": {"RT": "0", "E2E": "0", "BF16": "0"},
+              "K12": {"RT": "0", "E2E": "0", "DYN": "0"}, "K13": {"RT": "0", "FUSED": "0"},
+              "dense": {"E2E": "0"}}
+MOE_ROUTE_REACHES = {"K10 rt": ("qmoe_e2e",) * 2, "K10 ic": ("qmoe_e2e",) * 2,
+                     "K11": ("qmoe_mlp_dyn", "dense"), "K11 f32": ("qmoe_mlp_dyn", "dense"),
+                     "K12": ("qmoe_mlp", "dense"), "K13": ("qmoe_matmul", "dense"),
+                     "dense": ("dense", "dense")}
 
 
 class CheckFailed(RuntimeError):
@@ -147,7 +203,7 @@ def ptxas_summary(lines_by_source: dict) -> dict:
             m = re.search(r"Compiling entry function '_ZN3gqt(\d+)(\w+)'", ln)
             if m:  # gqt::<name>, its length first, then I<args>E for a template
                 name, rest = m.group(2)[:int(m.group(1))], m.group(2)[int(m.group(1)):]
-                args = (re.findall(r"Li(\d+)E", rest.split("EEv")[0] + "E")
+                args = (re.findall(r"L[ib](\d+)E", rest.split("EEv")[0] + "E")
                         if rest.startswith("I") else [])
                 fn = f"{name}<{','.join(args)}>" if args else name
                 out[fn] = {}
@@ -167,15 +223,22 @@ def ptxas_summary(lines_by_source: dict) -> dict:
 @contextlib.contextmanager
 def plain_versions():
     """Send the model's quantized products through the kernels' plain
-    versions, on the card, for the reference of ``compare``. The package
-    has no such switch; this swaps the registry's names and restores them."""
-    from gptqmodel_tpu_torch.ops import qmatmul as k1, qmlp as k2, registry
+    versions, on the card, for the reference of ``compare`` and
+    ``compare-moe``. The package has no such switch; this swaps the names
+    the registry and the MoE wrappers call, and restores them."""
+    from gptqmodel_tpu_torch.ops import qmatmul as k1, qmlp as k2, qmoe, registry
 
-    registry.qmatmul, registry.qmlp = k1.qmatmul_plain, k2.qmlp_plain
+    swaps = [(registry, "qmatmul", k1.qmatmul_plain), (registry, "qmlp", k2.qmlp_plain)] + [
+        (qmoe, name, getattr(qmoe, name + "_plain"))
+        for name in ("qmoe_mlp_e2e", "qmoe_mlp_matmul_dyn", "qmoe_mlp_matmul", "qmoe_matmul")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
     try:
         yield
     finally:
-        registry.qmatmul, registry.qmlp = k1.qmatmul, k2.qmlp
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 @contextlib.contextmanager
@@ -321,6 +384,447 @@ def compare_quantize_phase(root: Path, state: dict, card: str) -> dict:
         del model
         torch.cuda.empty_cache()
     return rec
+
+
+def moe_stacks(dev, seed: int):
+    """A fused gate|up stack and a down stack of Qwen3-30B-A3B's 128
+    experts (4-bit, g = 128, symmetric), random words and scales drawn on
+    the card, and its router; the rt flag as ``stack_packed_experts`` sets
+    it."""
+    import torch
+
+    from gptqmodel_tpu_torch.ops import qmoe
+    from gptqmodel_tpu_torch.utils.testing import QWEN3_30B_A3B_CONFIG as C
+
+    g = torch.Generator(dev).manual_seed(seed)
+    E = C["num_experts"]
+
+    def stack(K, N):
+        G = K // 128
+        qw = torch.randint(-2**31, 2**31, (E, K // 8, N), generator=g, dtype=torch.int64,
+                           device=dev).to(torch.int32)
+        sc = torch.zeros((E, max(8, -(-G // 8) * 8), N), device=dev)
+        sc[:, :G] = (torch.rand((E, G, N), generator=g, device=dev) + 0.5) * (
+            0.02 / math.sqrt(255 / 12))
+        return qmoe.StackedQuantExperts(
+            qweight=qw, scales=sc.to(torch.bfloat16), bits=4, G=G, zero_const=8.0,
+            in_features=K, out_features=N, rt=qmoe.stacked_rt_ok(4, K, 128, subgroup=True))
+
+    D, F = C["hidden_size"], C["moe_intermediate_size"]
+    router = (torch.randn((E, D), generator=g, device=dev) * 0.02).to(torch.bfloat16)
+    return stack(D, 2 * F), stack(F, D), router, g
+
+
+def moe_routing(router, N: int, g):
+    """N seeded token rows and their routes: the router's bf16 product,
+    softmax, top-8 and renormalization, as ``moe_mlp`` routes."""
+    import torch
+
+    from gptqmodel_tpu_torch.models.transformer import _topk
+    from gptqmodel_tpu_torch.utils.testing import QWEN3_30B_A3B_CONFIG as C
+
+    x = torch.randn((N, router.shape[1]), generator=g, device=router.device).to(torch.bfloat16)
+    w, i = _topk(torch.softmax((x @ router.T).float(), -1), C["num_experts_per_tok"])
+    return x, w / w.sum(-1, keepdim=True), i
+
+
+def moe_bytes(top_i, stacks, rows_in: int, rows_out: int) -> int:
+    """Bytes a MoE kernel must move: the words and real group scales of each
+    distinct routed expert of each stack, read once, plus ``rows_in`` bf16
+    values read and ``rows_out`` written."""
+    distinct = int(top_i.unique().numel())
+    per_expert = sum(st.qweight[0].nbytes + st.G * st.out_features * 2 for st in stacks)
+    return distinct * per_expert + 2 * (rows_in + rows_out)
+
+
+def moe_kernel_cases(dev, timed, errors, copies_for) -> list:
+    """K10 at N = 1, 8 and 1024 tokens (two runs each, for equal bits), K11
+    and K12 at N = 8 and 128 (equal to each other), K13 gate|up and down at
+    N = 8 and 128, at Qwen3-30B-A3B's widths, each against its plain
+    version, the stacks rotated through copies past the L2."""
+    import torch
+    import torch.nn.functional as F_
+
+    from gptqmodel_tpu_torch.ops import _build, qmoe
+
+    gu, dn, router, g = moe_stacks(dev, SEED + 300)
+    E, D, F = gu.qweight.shape[0], gu.in_features, gu.out_features // 2
+    cases = []
+
+    def rotated(routed_bytes):
+        base = (gu.qweight, gu.scales, dn.qweight, dn.scales)
+        return [base] + [tuple(t.clone() for t in base)
+                         for _ in range(copies_for(routed_bytes) - 1)]
+
+    def case(kernel, N, M, y, ref, kern, plain, n_bytes, ops, tol, **extra):
+        rel, mx = errors(y, ref)
+        k = timed(kern, extra["copies"])
+        p = timed(plain, extra["copies"], budget_ms=100.0)
+        b_ms, b_by = bound(n_bytes, ops)
+        c = {"kernel": kernel, "N": N, "M": M, "D": D, "F": F, "E": E, "rel_err": rel,
+             "max_abs_err": mx, "ms": k["ms"], "wall_ms": k["wall_ms"], "plain_ms": p["ms"],
+             "plain_wall_ms": p["wall_ms"], "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": None,
+             "library": "null: no PyTorch call computes a quantized grouped expert MLP",
+             **extra}
+        cases.append(c)
+        emit({"phase": "kernels", **c})
+        require(rel <= tol, f"{kernel} N={N}: rel {rel} > {tol}")
+
+    for N in MOE_E2E_NS:
+        x, w, top_i = moe_routing(router, N, g)
+        M = N * w.shape[1]
+        bm = 8 if M <= 128 else (16 if M <= 1024 else 32)
+        S = qmoe.slot_bound(M, E, bm)
+        ids, counts, row_pos = qmoe.plan_rows(top_i.reshape(-1), E, bm, S)
+        ops_ = qmoe.e2e_operands(row_pos.reshape(N, -1), w, counts, bm)
+        n_bytes = moe_bytes(top_i, (gu, dn), N * D, N * D)
+        sets = rotated(n_bytes)
+        kw = dict(bits=4, G_gu=gu.G, G_d=dn.G, F=F, bm=bm, zc_gu=8.0, zc_d=8.0,
+                  rt_gu=gu.rt, rt_d=dn.rt)
+        kern = lambda i: qmoe.qmoe_mlp_e2e(x, ids, *ops_, *sets[i], **kw)
+        plain = lambda i: qmoe.qmoe_mlp_e2e_plain(x, ids, *ops_, *sets[i], **kw)
+        before = _build.LAUNCHES["qmoe_e2e"]
+        y, y2, ref = kern(0), kern(0), plain(0)
+        torch.cuda.synchronize()
+        require(_build.LAUNCHES["qmoe_e2e"] == before + 2, "K10 did not launch")
+        identical = torch.equal(y, y2)
+        case("qmoe_e2e", N, M, y, ref, kern, plain, n_bytes, 2.0 * M * 3 * D * F, K10_TOL,
+             bm=bm, slots=S, distinct_experts=int(top_i.unique().numel()),
+             rt=[gu.rt, dn.rt], identical_runs=identical, copies=len(sets))
+        require(identical, f"K10 N={N}: two runs gave different bits")
+        del sets, y, y2, ref
+
+    for N in MOE_SLOT_NS:
+        x, w, top_i = moe_routing(router, N, g)
+        M, bm = N * w.shape[1], 8
+        flat = top_i.reshape(-1)
+        order = torch.sort(flat, stable=True).indices
+        S = qmoe.slot_bound(M, E, bm)
+        ids, counts, pos = qmoe.plan_slots(flat[order], E, bm, S)
+        xs = torch.zeros((S * bm, D), dtype=torch.bfloat16, device=dev)
+        xs[pos.long()] = x[order // w.shape[1]]
+        n_used = (counts > 0).sum().to(torch.int32).reshape(1)
+        n_bytes = moe_bytes(top_i, (gu, dn), M * D, M * D)
+        sets = rotated(n_bytes)
+        kw = dict(bits=4, G_gu=gu.G, G_d=dn.G, F=F, bm=bm, zc_gu=8.0, zc_d=8.0,
+                  out_dtype=torch.bfloat16)
+        dyn = lambda i: qmoe.qmoe_mlp_matmul_dyn(xs, ids, counts, n_used, *sets[i], **kw)
+        grid = lambda i: qmoe.qmoe_mlp_matmul(xs, ids, counts, *sets[i], **kw)
+        plain = lambda i: qmoe.qmoe_mlp_matmul_plain(xs, ids, counts, *sets[i], **kw)
+        y_dyn, y_grid, ref = dyn(0), grid(0), plain(0)
+        torch.cuda.synchronize()
+        equal = torch.equal(y_dyn, y_grid)
+        ops = 2.0 * M * 3 * D * F
+        for kernel, fn, y in (("qmoe_mlp_dyn", dyn, y_dyn), ("qmoe_mlp", grid, y_grid)):
+            case(kernel, N, M, y, ref, fn, plain, n_bytes, ops, SLOT_MLP_TOL, bm=bm, slots=S,
+                 equal_k11_k12=equal, copies=len(sets))
+        require(equal, f"K11 and K12 differ at N={N}")
+
+        k13 = dict(bits=4, bm=bm, zero_const=8.0, out_dtype=torch.bfloat16)
+        gu_out = qmoe.qmoe_matmul(xs, ids, counts, gu.qweight, gu.scales, G=gu.G, **k13)
+        inner = (F_.silu(gu_out[:, :F].float()) * gu_out[:, F:].float()).to(torch.bfloat16)
+        for proj, xin, st, i_w, K, Nout in (("gate_up", xs, gu, (0, 1), D, 2 * F),
+                                            ("down", inner, dn, (2, 3), F, D)):
+            kern = lambda i: qmoe.qmoe_matmul(xin, ids, counts, sets[i][i_w[0]],
+                                              sets[i][i_w[1]], G=st.G, **k13)
+            plain = lambda i: qmoe.qmoe_matmul_plain(xin, ids, counts, sets[i][i_w[0]],
+                                                     sets[i][i_w[1]], G=st.G, **k13)
+            y, ref = kern(0), plain(0)
+            case("qmoe_matmul", N, M, y, ref, kern, plain,
+                 moe_bytes(top_i, (st,), M * K, M * Nout), 2.0 * M * K * Nout, K13_TOL,
+                 proj=proj, bm=bm, slots=S, copies=len(sets))
+        del sets, xs, inner, gu_out
+    del gu, dn
+    torch.cuda.empty_cache()
+    return cases
+
+
+def count_dense_fallback():
+    """Count the dense fallback's calls: it launches no kernel of the port,
+    so the MoE routes read this counter beside ``_build.LAUNCHES``. The
+    package has no such counter; this wraps the name the dispatch calls."""
+    from gptqmodel_tpu_torch.models import transformer
+
+    fn, calls = transformer._moe_packed_dense_fallback, [0]
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return fn(*a, **kw)
+
+    @contextlib.contextmanager
+    def ctx():
+        transformer._moe_packed_dense_fallback = counted
+        try:
+            yield calls
+        finally:
+            transformer._moe_packed_dense_fallback = fn
+
+    return ctx()
+
+
+def moe_phases(root: Path, card: str, device_ms) -> dict:
+    """``moe-slice``, ``compare-moe`` and ``moe-routes`` on a GPTQ
+    Qwen3-30B-A3B-wide checkpoint (all 48 layers, random weights from the
+    seed, drawn on the card) written under ``root``."""
+    import torch
+
+    from gptqmodel_tpu_torch import GPTQModel
+    from gptqmodel_tpu_torch.inference.engine import (
+        init_kv_cache, make_decode_fn, make_prefill_fn,
+    )
+    from gptqmodel_tpu_torch.models import transformer
+    from gptqmodel_tpu_torch.models.loader import CheckpointReader, build_params_tree
+    from gptqmodel_tpu_torch.models.optimize import stack_moe_experts
+    from gptqmodel_tpu_torch.ops import _build
+    from gptqmodel_tpu_torch.ops.registry import post_init_params
+    from gptqmodel_tpu_torch.quantization.config import QuantizeConfig
+    from gptqmodel_tpu_torch.utils.testing import (
+        QWEN3_30B_A3B_CONFIG, write_random_qwen3_moe_checkpoint,
+    )
+
+    dev = torch.device("cuda")
+    cfg = QWEN3_30B_A3B_CONFIG
+    L, V = cfg["num_hidden_layers"], cfg["vocab_size"]
+    out = {}
+    t0 = time.perf_counter()
+    n_bytes = write_random_qwen3_moe_checkpoint(root, cfg, seed=SEED, device=dev)
+    write_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = GPTQModel.load(root)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    load_peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    model.optimize()
+    torch.cuda.synchronize()
+    optimize_s = time.perf_counter() - t0
+    spec, params = model.spec, model.params
+    layers = params["model"]["layers"]
+    require(model.device.type == "cuda" and spec.model_type == "qwen3_moe", spec.model_type)
+    require(len(layers) == L and all(
+        "qkv_proj" in lp["self_attn"] and set(lp["mlp"]) == {"gate", "experts_stacked_q"}
+        and set(lp["mlp"]["experts_stacked_q"]) == {"gateup", "down"}
+        and lp["mlp"]["experts_stacked_q"]["gateup"].rt for lp in layers),
+        "optimize() left a layer unstacked or off the rt contract")
+    weights_mem, optimize_peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+
+    # ------------------------------------------------------------ moe-slice
+    none = dict.fromkeys(_build.LAUNCHES, 0)
+    counts_per = none | {"qmatmul": 2 * L, "qmoe_e2e": L}  # a prefill or a decode step
+    ids = np.random.default_rng([SEED, 5]).integers(0, V, (B, T))
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    tokens = model.generate(ids, max_new_tokens=NEW)
+    generate_s = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)
+    want = {k: NEW * v for k, v in counts_per.items()}
+    require(counts == want, f"moe generate launched {counts}, expected {want}")
+    require(tokens.shape == (B, NEW) and ((tokens >= 0) & (tokens < V)).all(),
+            f"tokens {tokens.shape}")
+    timing = serve_timing(spec, params, ids, False, counts_per, counts_per, device_ms)
+    out["moe_slice"] = rec = {
+        "phase": "moe-slice", "gpu": card, "layers": L, "B": B, "T": T, "new_tokens": NEW,
+        "kv": "bf16", "checkpoint_bytes": n_bytes, "write_s": write_s, "load_s": load_s,
+        "load_peak_mem_bytes": load_peak, "optimize_s": optimize_s,
+        "optimize_peak_mem_bytes": optimize_peak, "weights_mem_bytes": weights_mem,
+        "generate_s": generate_s, "generate_counts": counts,
+        "generate_peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "counts_per_prefill_and_step": counts_per, "tokens_first_row": tokens[0].tolist(),
+        **timing,
+    }
+    emit(rec)
+
+    # ---------------------------------------------------------- compare-moe
+    spec2 = dataclasses.replace(spec, num_layers=2)
+    params2 = {**params, "model": {**params["model"], "layers": layers[:2]}}
+    ids_t = torch.as_tensor(ids, device=dev)
+    lens = torch.full((B,), T, dtype=torch.long, device=dev)
+    topk = transformer._topk
+
+    def run(steps: int, forced=None, forced_routes=None):
+        """Prefill and ``steps`` decode steps of the 2-layer model; its
+        logits, tokens and, per router call, the (probabilities, experts) it
+        chose and the largest change of its probabilities at the given
+        experts. With ``forced_routes`` each call still records its own
+        choice but routes through the given ones."""
+        routes, prob_diff = [], []
+
+        def recorded(x, k):
+            v, i = topk(x, k)
+            routes.append((v, i))
+            if forced_routes is not None:
+                v, i = forced_routes[len(routes) - 1]
+                prob_diff.append(float((x.gather(-1, i) - v).abs().max()))
+            return v, i
+
+        transformer._topk = recorded
+        try:
+            caches = init_kv_cache(spec2, B, T + steps, torch.bfloat16, False, device=dev)
+            with torch.inference_mode():
+                logits, caches, kv = make_prefill_fn(spec2)(params2, ids_t, lens, caches)
+                dec = make_decode_fn(spec2)
+                outs, toks, pos = [logits.float()], [logits.argmax(-1)], lens.clone()
+                for s in range(steps):
+                    tok = toks[-1] if forced is None else forced[s]
+                    logits, caches, kv = dec(params2, tok, pos, T + s, kv, caches)
+                    outs.append(logits.float())
+                    toks.append(logits.argmax(-1))
+                    pos = pos + 1
+        finally:
+            transformer._topk = topk
+        return torch.stack(outs), toks, routes, prob_diff
+
+    _build.reset_counts()
+    got, got_toks, got_routes, _ = run(8)
+    kernel_counts = dict(_build.LAUNCHES)
+    with plain_versions():
+        ref, ref_toks, ref_routes, prob_diff = run(8, forced=got_toks, forced_routes=got_routes)
+    require(dict(_build.LAUNCHES) == kernel_counts, "the plain path launched a kernel")
+    require(kernel_counts == none | {"qmatmul": 2 * 2 * 9, "qmoe_e2e": 2 * 9}, kernel_counts)
+    rel = float((got - ref).norm() / ref.norm())
+    chosen = lambda rs: [torch.sort(i, dim=-1).values for _, i in rs]
+    differ = sum(int((a != b).any(-1).sum())
+                 for a, b in zip(chosen(got_routes), chosen(ref_routes)))
+    n_routes = sum(i.shape[0] for _, i in got_routes)
+    agree = float(torch.stack([a == b for a, b in zip(got_toks, ref_toks)]).float().mean())
+    # distinct experts a decode step routes to, per layer (the calls after
+    # the two prefill ones)
+    distinct = [int(i.unique().numel()) for _, i in got_routes[2:]]
+    out["compare_moe"] = rec = {
+        "phase": "compare-moe", "gpu": card, "layers": 2, "positions": 9, "kv": "bf16",
+        "logits_rel_err": rel, "logits_tol": SLICE_TOL, "greedy_agreement": agree,
+        "routes": "the plain path follows the kernel path's routes (experts and weights)",
+        "token_layer_routes": n_routes, "token_layer_routes_differing": differ,
+        "router_prob_max_abs_diff": max(prob_diff),
+        "decode_distinct_experts_per_layer": distinct}
+    emit(rec)
+    require(bool(torch.isfinite(got).all()), "non-finite logits at 2 layers")
+    require(rel <= SLICE_TOL, f"kernel path vs plain path: rel {rel} > {SLICE_TOL}")
+    del got, ref, params2, model, params, layers
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------- moe-routes
+    lp0 = post_init_params(build_params_tree(
+        CheckpointReader(root), QuantizeConfig.from_pretrained(root), dev, layer_filter=0))
+    routes = {}
+    for N in (8, 1024):
+        h = torch.randn((1, N, spec.hidden_size), generator=torch.Generator(dev).manual_seed(N),
+                        device=dev).to(torch.bfloat16)
+        ys = {}
+        for name, env in MOE_ROUTES.items():  # "K10 rt" first: the default
+            with mock.patch.dict(os.environ, {f"GPTQ_TPU_QMOE_{k}": v for k, v in env.items()}):
+                mp = {"gate": lp0["mlp"]["gate"], "experts": list(lp0["mlp"]["experts"])}
+                stack_moe_experts(spec, {"model": {"layers": [{"mlp": mp}]}})
+                _build.reset_counts()
+                with count_dense_fallback() as dense, torch.inference_mode():
+                    ys[name] = transformer.moe_mlp(spec, mp, h)
+                    torch.cuda.synchronize()
+                launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+                reached = "dense" if dense[0] else "+".join(launched)
+                routes[f"{name} N={N}"] = r = {
+                    "env": env, "launched": launched, "dense_fallback_calls": dense[0],
+                    "reached": reached,
+                    "rel_vs_default": float((ys[name].float() - ys["K10 rt"].float()).norm()
+                                            / ys["K10 rt"].float().norm())}
+                require(r["rel_vs_default"] <= ROUTE_TOL, f"{name} N={N}: {r}")
+                require(reached == MOE_ROUTE_REACHES[name][N > 128]
+                        and dense[0] + sum(launched.values())
+                        == (2 if reached == "qmoe_matmul" else 1),
+                        f"{name} N={N}: {r}")
+        if N == 8:  # the slot paths run only at most 1024 routed rows
+            rel = lambda a, b: float((ys[a].float() - ys[b].float()).norm()
+                                     / ys[b].float().norm())
+            routes["K10 ic vs K11 f32, N=8"] = k10_ic_vs_k11 = rel("K10 ic", "K11 f32")
+            routes["K10 ic vs K11 (bf16 y), N=8"] = rel("K10 ic", "K11")
+            require(k10_ic_vs_k11 <= K10_IC_VS_K11, f"K10 ic vs K11: {k10_ic_vs_k11}")
+        require(torch.equal(ys["K11"], ys["K12"]), f"K11 and K12 differ at N={N}")
+    out["moe_routes"] = rec = {"phase": "moe-routes", "gpu": card, "layer": 0, "routes": routes}
+    emit(rec)
+    return out
+
+
+
+def serve_timing(spec, params, ids, kv_quant, prefill_counts: dict, step_counts: dict,
+                 device_ms) -> dict:
+    """The served path through the engine, timed: one prefill (host clock
+    with a synchronize), 40 decode steps after 2 of warm-up (CUDA events, and
+    the host clock for the enqueue), then 4 steps under torch.profiler for
+    the device's busy share and its time by kernel. Asserts the launch counts
+    of the prefill and of the timed steps, finite logits, and one decode step
+    that makes no synchronizing call (``torch.cuda.set_sync_debug_mode``)."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    from gptqmodel_tpu_torch.inference.engine import (
+        init_kv_cache, make_decode_fn, make_prefill_fn,
+    )
+    from gptqmodel_tpu_torch.ops import _build
+
+    dev = torch.device("cuda")
+    Bn, Tn = ids.shape
+    caches = init_kv_cache(spec, Bn, Tn + NEW, torch.bfloat16, kv_quant, device=dev)
+    prefill, decode = make_prefill_fn(spec), make_decode_fn(spec)
+    ids_t = torch.as_tensor(ids, device=dev)
+    lens = torch.full((Bn,), Tn, dtype=torch.long, device=dev)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        logits, caches, key_valid = prefill(params, ids_t, lens, caches)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        require(dict(_build.LAUNCHES) == prefill_counts, f"prefill {_build.LAUNCHES}")
+        require(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
+        token, pos = logits.argmax(-1), lens.clone()
+        warm, steps, n_prof = 2, 40, 4
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        finite = []
+        for s in range(warm + steps):
+            if s == warm:
+                torch.cuda.synchronize()
+                _build.reset_counts()
+                t0 = time.perf_counter()
+                start.record()
+            logits, caches, key_valid = decode(params, token, pos, Tn + s, key_valid, caches)
+            finite.append(torch.isfinite(logits).all())
+            token, pos = logits.argmax(-1), pos + 1
+        end.record()
+        end.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / steps
+        decode_ms = start.elapsed_time(end) / steps
+        require(dict(_build.LAUNCHES) == {k: v * steps for k, v in step_counts.items()},
+                f"decode {_build.LAUNCHES}")
+        require(bool(torch.stack(finite).all()), "non-finite decode logits")
+        slot = Tn + warm + steps  # at most T + 54 < T + NEW: three profiler sessions
+
+        def profiled_steps():
+            nonlocal token, pos, key_valid, slot
+            for _ in range(n_prof):
+                out, _, key_valid = decode(params, token, pos, slot, key_valid, caches)
+                token, pos, slot = out.argmax(-1), pos + 1, slot + 1
+
+        step_dev_ms, by_kernel = device_ms(
+            profiled_steps, n_prof, (ProfilerActivity.CPU, ProfilerActivity.CUDA))
+        # one more step with PyTorch's synchronization check raising: no value
+        # of the step (the MoE routing plan included) waits on the host
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            decode(params, token, pos, slot, key_valid, caches)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return {
+        "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+        "decode_host_ms_per_step": host_ms, "decode_tok_per_s": Bn / (decode_ms / 1e3),
+        # device kernel time per step under the profiler, over the step timed
+        # without it
+        "device_ms_per_step": step_dev_ms, "device_busy_share": step_dev_ms / decode_ms,
+        "device_ms_per_step_by_kernel": [[k[:90], ms] for k, ms in by_kernel[:12]],
+    }
 
 
 def main() -> int:
@@ -588,8 +1092,9 @@ def main() -> int:
         emit({"phase": "kernels", **case})
         require(equal, f"K9 {proj}: differs from its plain version by {max_err}")
         del blk, got, ref
-    record["kernels"] = cases
     torch.cuda.empty_cache()
+    cases += moe_kernel_cases(dev, timed, errors, copies_for)
+    record["kernels"] = cases
 
     # ---------------------------------------------------------------- slice
     L = LLAMA3_8B_CONFIG["num_hidden_layers"]
@@ -634,68 +1139,18 @@ def main() -> int:
         want = {k: prefill_counts[k] + (NEW - 1) * step_counts[k] for k in step_counts}
         require(counts == want, f"generate launched {counts}, expected {want}")
 
-        # the same path through the engine, timed: prefill, then decode steps
-        caches = init_kv_cache(spec, B, T + NEW, torch.bfloat16, kv_quant, device=dev)
-        prefill, decode = make_prefill_fn(spec), make_decode_fn(spec)
-        ids_t = torch.as_tensor(ids, device=dev)
-        lens = torch.full((B,), T, dtype=torch.long, device=dev)
-        with torch.inference_mode():
-            torch.cuda.synchronize()
-            _build.reset_counts()
-            t0 = time.perf_counter()
-            logits, caches, key_valid = prefill(params, ids_t, lens, caches)
-            torch.cuda.synchronize()
-            prefill_ms = (time.perf_counter() - t0) * 1e3
-            require(dict(_build.LAUNCHES) == prefill_counts, f"prefill {_build.LAUNCHES}")
-            require(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
-            token, pos = logits.argmax(-1), lens.clone()
-            warm, steps, n_prof = 2, 40, 4
-            start, end = (torch.cuda.Event(enable_timing=True),
-                          torch.cuda.Event(enable_timing=True))
-            finite = []
-            for s in range(warm + steps):
-                if s == warm:
-                    torch.cuda.synchronize()
-                    _build.reset_counts()
-                    t0 = time.perf_counter()
-                    start.record()
-                logits, caches, key_valid = decode(params, token, pos, T + s, key_valid, caches)
-                finite.append(torch.isfinite(logits).all())
-                token, pos = logits.argmax(-1), pos + 1
-            end.record()
-            end.synchronize()
-            host_ms = (time.perf_counter() - t0) * 1e3 / steps
-            decode_ms = start.elapsed_time(end) / steps
-            require(dict(_build.LAUNCHES) == {k: v * steps for k, v in step_counts.items()},
-                    f"decode {_build.LAUNCHES}")
-            require(bool(torch.stack(finite).all()), "non-finite decode logits")
-            slot = T + warm + steps  # at most T + 54 < T + NEW with three sessions
-
-            def profiled_steps():
-                nonlocal token, pos, key_valid, slot
-                for _ in range(n_prof):
-                    out, _, key_valid = decode(params, token, pos, slot, key_valid, caches)
-                    token, pos, slot = out.argmax(-1), pos + 1, slot + 1
-
-            step_dev_ms, by_kernel = device_ms(
-                profiled_steps, n_prof, (ProfilerActivity.CPU, ProfilerActivity.CUDA))
+        timing = serve_timing(spec, params, ids, kv_quant, prefill_counts, step_counts,
+                              device_ms)
         rec = {
             "phase": "slice", "gpu": card, "kv": kv, "layers": L, "B": B, "T": T,
             "new_tokens": NEW, "checkpoint_bytes": n_bytes, "write_s": write_s,
             "load_s": load_s, "optimize_s": optimize_s, "weights_mem_bytes": weights_mem,
             "generate_s": generate_s, "generate_counts": counts, "peak_mem_bytes": peak,
-            "prefill_ms": prefill_ms, "prefill_counts": prefill_counts,
-            "decode_ms_per_step": decode_ms, "decode_host_ms_per_step": host_ms,
-            "decode_tok_per_s": B / (decode_ms / 1e3), "decode_counts_per_step": step_counts,
-            # device kernel time per step under the profiler, over the step
-            # timed without it
-            "device_ms_per_step": step_dev_ms,
-            "device_busy_share": step_dev_ms / decode_ms,
-            "device_ms_per_step_by_kernel": [[k[:90], ms] for k, ms in by_kernel[:12]],
+            "prefill_counts": prefill_counts, "decode_counts_per_step": step_counts,
+            **timing,
         }
         emit(rec)
         slice_recs.append(rec)
-        del caches, logits
     record["slice"] = slice_recs
 
     # -------------------------------------------------------------- compare
@@ -744,6 +1199,12 @@ def main() -> int:
         cq_rec = compare_quantize_phase(Path(work), state, card)
         emit(cq_rec)
         record["compare_quantize"] = cq_rec
+
+    # ------------------------------------- moe-slice, compare-moe, moe-routes
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="qwen3-30b-a3b-gptq-", dir=ROOT / "build") as ckpt:
+        moe = moe_phases(Path(ckpt), card, device_ms)
+    record.update(moe)
 
     # -------------------------------------------------------------- summary
     main_counts = slice_recs[0]["generate_counts"]  # the bf16-KV generate
@@ -796,6 +1257,45 @@ def main() -> int:
          "launches": cq_rec["k9"]["counts"]["gptq_block_inner"],
          "launches_per": f"quantize run of {cq_rec['layers']} layer",
          "ms_per": "quantized layer", **per_layer("gptq_block_inner")},
+    ]
+    L_moe = moe["moe_slice"]["layers"]
+    route_counts = {k: sum(r["launched"].get(k, 0) for r in moe["moe_routes"]["routes"].values()
+                           if isinstance(r, dict)) for k in _build.LAUNCHES}
+
+    def moe_entry(kernel: str, N: int, times: int) -> dict:
+        """The kernel's cases at N tokens, summed (K13: gate|up and down),
+        times ``times``."""
+        sel = [c for c in cases if c["kernel"] == kernel and c.get("N") == N]
+        total = lambda key: times * sum(c[key] for c in sel)
+        return {"max_abs_err": max(c["max_abs_err"] for c in cases if c["kernel"] == kernel),
+                "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+                "bound_by": ("bytes" if all(c["bound_by"] == "bytes" for c in sel)
+                             else "operations"), "library_ms": None}
+
+    per_route_layer = "MoE layer at N = 8 tokens (moe-routes)"
+    summary += [
+        {"name": "qmoe_mlp_e2e (K10)", "route": "cuda",
+         "source": "gptqmodel_tpu_torch/csrc/qmoe.cu",
+         "replaces": "gptqmodel_tpu/ops/pallas_qmoe.py:678",
+         "launches": moe["moe_slice"]["generate_counts"]["qmoe_e2e"],
+         "launches_per": f"moe generate run ({L_moe} layers)",
+         "ms_per": f"decode step at B = {B} ({L_moe} layers)",
+         **moe_entry("qmoe_e2e", B, L_moe)},
+        {"name": "qmoe_mlp_matmul_dyn (K11)", "route": "cuda",
+         "source": "gptqmodel_tpu_torch/csrc/qmoe.cu",
+         "replaces": "gptqmodel_tpu/ops/pallas_qmoe.py:534",
+         "launches": route_counts["qmoe_mlp_dyn"], "launches_per": "moe-routes run",
+         "ms_per": per_route_layer, **moe_entry("qmoe_mlp_dyn", B, 1)},
+        {"name": "qmoe_mlp_matmul (K12)", "route": "cuda",
+         "source": "gptqmodel_tpu_torch/csrc/qmoe.cu",
+         "replaces": "gptqmodel_tpu/ops/pallas_qmoe.py:362",
+         "launches": route_counts["qmoe_mlp"], "launches_per": "moe-routes run",
+         "ms_per": per_route_layer, **moe_entry("qmoe_mlp", B, 1)},
+        {"name": "qmoe_matmul (K13)", "route": "cuda",
+         "source": "gptqmodel_tpu_torch/csrc/qmoe.cu",
+         "replaces": "gptqmodel_tpu/ops/pallas_qmoe.py:224",
+         "launches": route_counts["qmoe_matmul"], "launches_per": "moe-routes run",
+         "ms_per": per_route_layer + ", gate|up and down", **moe_entry("qmoe_matmul", B, 1)},
     ]
     record["summary"] = summary
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1) + "\n")

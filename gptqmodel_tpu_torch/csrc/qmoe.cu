@@ -1,0 +1,434 @@
+// K10-K13: the MoE kernels over stacked packed experts, symmetric 2/4/8-bit.
+//
+// Replace the TPU kernels of gptqmodel_tpu/ops/pallas_qmoe.py:
+//   K13 _qmoe_kernel           (:224, qmoe_matmul)         gqt_qmoe_matmul
+//   K12 _qmoe_mlp_kernel       (:362, qmoe_mlp_matmul)     gqt_qmoe_mlp, n_used == NULL
+//   K11 _qmoe_mlp_dyn_kernel   (:534, qmoe_mlp_matmul_dyn) gqt_qmoe_mlp, n_used given
+//   K10 _qmoe_mlp_e2e_kernel   (:678, qmoe_mlp_e2e)        gqt_qmoe_e2e
+//
+// Layout (ops/qmoe.py): routed rows live in slots of at most bm rows, slot s
+// owning rows [s*bm, s*bm + count_s) and one expert ids[s]; the used slots
+// are a prefix of the static bound S. Weights qw [E, K/PF, N] int32 in the
+// interchange layout, scales [E, Gp, N] bf16.
+//
+// One device routine serves all four: a block of 4 warps computes one slot's
+// bm rows (one or two 16-row mma tiles) against 8*NT columns of the slot's
+// expert, the warps splitting K by whole groups and adding in warp order
+// (block_reduce, no atomics). The B operand is built in registers from the
+// packed words as in K1 (qmm_common.cuh), in one of two contracts:
+//   rt: raw codes, per-group partial dots P_g, acc += P_g*s_g - X1_g*zc*s_g
+//       (K1's arithmetic, the scales bf16-valued in f32);
+//   ic: each weight dequantized to bf16((q - zc)*s) (the product is exact in
+//       f32, rounded once), bf16 x bf16 products summed in f32.
+// The TPU kernels permute x to the planes' order; here the mma's K index is
+// mapped onto the packed fields and x gathered with the same map, so no
+// permute is needed and the sums are the same products.
+//
+// Passes, each a launch over (column tiles, S slots); a slot that is not
+// used returns at once (K12, K13: count == 0; K10, K11: s >= *n_used, read
+// on the device, so the routing plan never visits the host):
+//   gate|up  -> inner [S*bm, F] = bf16(silu(g)*u)    (K10 gathers x rows
+//               through tok, -1 a zero row; K11, K12 read slot-sorted rows)
+//   down / K13 -> out [S*bm, N], rows at or past the count 0 (bf16 or f32)
+//   K10 down   -> ybuf [S*bm, D] f32 = y * w[row]
+//   K10 combine-> out[n] = sum of ybuf over token n's slot rows, from 0 in
+//               ascending slot (= expert) order in f32, rounded once: the
+//               TPU kernel's accumulation order, with no float atomics.
+// K11 and K12 run the same passes and differ only in which slots they skip,
+// so their results are equal bit for bit; two runs of any of them are too.
+//
+// What bounds them on an H100 (3.35 TB/s, 989 TFLOP/s bf16): at decode the
+// routed experts' packed weights, read once each (K10 at B = 8, top-8 of
+// 128: about 51 distinct experts, 120 MB a layer, 0.037 ms); at prefill the
+// routed rows' operations. The design is the simple one: every slot block
+// reads its expert's words (slots of one expert are neighbours in launch
+// order and meet them in L2), decode tiles are 16 rows by 8 or 16 columns,
+// and there is no wgmma, TMA or persistent scheduling yet.
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W: K10 at
+// B = 8 takes 0.17 ms a layer against its 0.037 ms byte bound, at the
+// prefill of 1024 tokens 1.63 ms against 0.095 ms.
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "qmm_common.cuh"
+
+namespace gqt {
+
+enum Epilogue { kStoreMasked = 0, kActInner = 1, kWeighted = 2 };
+constexpr int kMaxTopk = 16;
+
+struct PassArgs {
+  const __nv_bfloat16* x;  // A rows: token rows (gather) or slot rows
+  int ldx;
+  const int* tok;          // gather: the x row of each slot row, -1 none
+  const int* ids;          // [S] expert of each slot
+  const int* counts;       // [S] rows of each slot, or NULL (all bm)
+  const int* n_used;       // [1] used slots, or NULL (skip by count)
+  int bm, K, N;            // N: the weight's columns
+  const uint32_t* qw;      // [E, K/PF, N]
+  const __nv_bfloat16* sc; // [E, Gp, N]
+  int Gp, g;
+  float zc;
+  const float* w;          // kWeighted: routing weight of each slot row
+  void* out;               // kActInner: inner [S*bm, F]; else [S*bm, N]
+  int out_f32;             // kStoreMasked: float32 (1) or bf16 (0)
+  int F;                   // kActInner: gate columns [0, F), up [F, 2F)
+};
+
+// bf16 pair of (q - zc) * s, the product exact in f32 and rounded once.
+__device__ __forceinline__ uint32_t dequant_pair(uint32_t codes, float zc, float s) {
+  const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&codes));
+  return as_u32(__floats2bfloat162_rn(__fmul_rn(__fsub_rn(c.x, zc), s),
+                                      __fmul_rn(__fsub_rn(c.y, zc), s)));
+}
+
+// The warp's product over K-rows [k_begin, k_end) (multiples of g, itself a
+// multiple of kChunk) for the slot's tile rows src[mt][h] (x row, -1 zero)
+// and columns cols[nt] .. +7; acc as in qmm_common.cuh's warp_tile.
+template <int BITS, int MT, int NT, bool RT>
+__device__ __forceinline__ void slot_warp_tile(
+    const __nv_bfloat16* __restrict__ x, int ldx, const int (&src)[MT][2],
+    const uint32_t* __restrict__ qw, const __nv_bfloat16* __restrict__ sc, int N,
+    const int (&cols)[NT], int g, int k_begin, int k_end, float zc,
+    float (&acc)[MT][NT][4]) {
+  constexpr int PF = 32 / BITS;
+  constexpr int KI = 4 * PF;       // K-rows per iteration: 4 words of a column
+  constexpr int IT = kChunk / KI;  // iterations per chunk
+  constexpr int NX = PF / 2;       // x words per row per lane per iteration
+  constexpr int NS = PF / 4;       // mma steps per iteration
+  const int lane = threadIdx.x & 31;
+  const int t = lane & 3, gid = lane >> 2;
+
+  float p[MT][NT][4], x1[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    x1[mt][0] = x1[mt][1] = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = p[mt][nt][i] = 0.f;
+  }
+  if (k_begin >= k_end) return;
+
+  uint32_t w[IT][NT], wn[IT][NT];
+  auto load_w = [&](int k0, uint32_t (&dst)[IT][NT]) {
+#pragma unroll
+    for (int it = 0; it < IT; ++it)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        dst[it][nt] = __ldg(qw + (size_t)(k0 / PF + it * 4 + t) * N + cols[nt] + gid);
+  };
+  load_w(k_begin, w);
+
+  for (int k0 = k_begin; k0 < k_end; k0 += kChunk) {
+    if (k0 + kChunk < k_end) load_w(k0 + kChunk, wn);  // in flight during the math
+    const int grp = k0 / g;
+    float sv[NT];  // ic: the scale of this lane's B column in the chunk's group
+    if constexpr (!RT) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        sv[nt] = __bfloat162float(sc[(size_t)grp * N + cols[nt] + gid]);
+    }
+#pragma unroll
+    for (int it = 0; it < IT; ++it) {
+      uint32_t b[NS][NT][2];
+#pragma unroll
+      for (int s = 0; s < NS; ++s)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          b[s][nt][0] = code_pair<BITS>(w[it][nt], 2 * s);
+          b[s][nt][1] = code_pair<BITS>(w[it][nt], 2 * s + 1);
+          if constexpr (!RT) {
+            b[s][nt][0] = dequant_pair(b[s][nt][0], zc, sv[nt]);
+            b[s][nt][1] = dequant_pair(b[s][nt][1], zc, sv[nt]);
+          }
+        }
+      const int kx = k0 + it * KI + t * PF;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int ra = src[mt][0], rb = src[mt][1];
+        uint32_t xa[NX], xb[NX];
+        load_x<NX>(x + (size_t)(ra < 0 ? 0 : ra) * ldx + kx, ra >= 0, xa);
+        load_x<NX>(x + (size_t)(rb < 0 ? 0 : rb) * ldx + kx, rb >= 0, xb);
+        if constexpr (RT) {
+#pragma unroll
+          for (int i = 0; i < NX; ++i) {
+            x1[mt][0] += pair_sum(xa[i]);
+            x1[mt][1] += pair_sum(xb[i]);
+          }
+        }
+#pragma unroll
+        for (int s = 0; s < NS; ++s) {
+          const uint32_t a[4] = {
+              __byte_perm(xa[s], xa[s + NS], 0x5410), __byte_perm(xb[s], xb[s + NS], 0x5410),
+              __byte_perm(xa[s], xa[s + NS], 0x7632), __byte_perm(xb[s], xb[s + NS], 0x7632)};
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            if constexpr (RT) mma_bf16(p[mt][nt], a, b[s][nt][0], b[s][nt][1]);
+            else mma_bf16(acc[mt][nt], a, b[s][nt][0], b[s][nt][1]);
+          }
+        }
+      }
+    }
+    if constexpr (RT) {
+      if ((k0 + kChunk) % g == 0) {  // the group ends with this chunk
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {  // the quad's lanes hold disjoint K-rows
+            x1[mt][h] += __shfl_xor_sync(0xffffffffu, x1[mt][h], 1);
+            x1[mt][h] += __shfl_xor_sync(0xffffffffu, x1[mt][h], 2);
+          }
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const float2 s = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                sc + (size_t)grp * N + cols[nt] + 2 * t));
+            const float zs0 = zc * s.x, zs1 = zc * s.y;
+            acc[mt][nt][0] += p[mt][nt][0] * s.x - x1[mt][0] * zs0;
+            acc[mt][nt][1] += p[mt][nt][1] * s.y - x1[mt][0] * zs1;
+            acc[mt][nt][2] += p[mt][nt][2] * s.x - x1[mt][1] * zs0;
+            acc[mt][nt][3] += p[mt][nt][3] * s.y - x1[mt][1] * zs1;
+#pragma unroll
+            for (int i = 0; i < 4; ++i) p[mt][nt][i] = 0.f;
+          }
+          x1[mt][0] = x1[mt][1] = 0.f;
+        }
+      }
+    }
+#pragma unroll
+    for (int it = 0; it < IT; ++it)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) w[it][nt] = wn[it][nt];
+  }
+}
+
+__device__ __forceinline__ void store2(void* out, size_t i, int f32, float a, float b) {
+  if (f32)
+    *reinterpret_cast<float2*>(static_cast<float*>(out) + i) = make_float2(a, b);
+  else
+    store_bf16x2(static_cast<__nv_bfloat16*>(out) + i, a, b);
+}
+
+// One slot (blockIdx.y) against one column tile (blockIdx.x) of its expert.
+template <int BITS, int MT, int NT, bool RT, int EPI, bool GATHER>
+__global__ void __launch_bounds__(kThreads) qmoe_pass_kernel(const PassArgs a) {
+  __shared__ float red[(kWarps - 1) * MT * NT * 4 * 32];
+  constexpr int PF = 32 / BITS;
+  const int s = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = lane & 3, gid = lane >> 2;
+  const int cnt = a.counts ? a.counts[s] : a.bm;
+  const bool used = a.n_used ? s < *a.n_used : cnt > 0;
+  if (!used && EPI != kStoreMasked) return;  // nothing reads those rows
+
+  int cols[NT];
+  if constexpr (EPI == kActInner) {
+    static_assert(NT == 2, "the act pass pairs 8 gate with 8 up columns");
+    cols[0] = blockIdx.x * 8;
+    cols[1] = a.F + blockIdx.x * 8;
+  } else {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) cols[nt] = (blockIdx.x * NT + nt) * 8;
+  }
+  float acc[MT][NT][4];
+  if (used) {
+    const int e = a.ids[s];
+    int src[MT][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 16 * mt + 8 * h + gid, r = s * a.bm + i;
+        src[mt][h] = i < a.bm ? (GATHER ? a.tok[r] : r) : -1;
+      }
+    const int G = a.K / a.g;
+    const int k_begin = (warp * G / kWarps) * a.g, k_end = ((warp + 1) * G / kWarps) * a.g;
+    slot_warp_tile<BITS, MT, NT, RT>(
+        a.x, a.ldx, src, a.qw + (size_t)e * (a.K / PF) * a.N,
+        a.sc + (size_t)e * a.Gp * a.N, a.N, cols, a.g, k_begin, k_end, a.zc, acc);
+    block_reduce<MT, NT>(red, acc);
+  } else {  // a skipped slot of K11, K12 or K13 writes its rows 0
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+  }
+  if (warp != 0) return;
+  const int keep = used ? cnt : 0;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = 16 * mt + 8 * h + gid;
+      if (i >= a.bm) continue;
+      const size_t r = (size_t)s * a.bm + i;
+      if constexpr (EPI == kActInner) {
+        float v[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float gt = acc[mt][0][2 * h + j];
+          v[j] = gt / (1.f + expf(-gt)) * acc[mt][1][2 * h + j];  // silu(g) * u, f32
+        }
+        store_bf16x2(static_cast<__nv_bfloat16*>(a.out) + r * a.F + cols[0] + 2 * t, v[0], v[1]);
+      } else if constexpr (EPI == kWeighted) {
+        const float wr = a.w[r];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          *reinterpret_cast<float2*>(static_cast<float*>(a.out) + r * a.N + cols[nt] + 2 * t) =
+              make_float2(__fmul_rn(acc[mt][nt][2 * h], wr), __fmul_rn(acc[mt][nt][2 * h + 1], wr));
+      } else {
+        const bool k = i < keep;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          store2(a.out, r * a.N + cols[nt] + 2 * t, a.out_f32, k ? acc[mt][nt][2 * h] : 0.f,
+                 k ? acc[mt][nt][2 * h + 1] : 0.f);
+      }
+    }
+}
+
+// K10's combine: out[n, :] = sum over token n's slot rows, ascending, from 0.
+__global__ void qmoe_combine_kernel(const float* __restrict__ y, const int* __restrict__ tok_pos,
+                                    int topk, int D, int out_f32, void* __restrict__ out) {
+  const int n = blockIdx.x;
+  int pos[kMaxTopk];
+  for (int j = 0; j < topk; ++j) {  // insertion sort: slot order
+    const int v = tok_pos[(size_t)n * topk + j];
+    int i = j;
+    for (; i > 0 && pos[i - 1] > v; --i) pos[i] = pos[i - 1];
+    pos[i] = v;
+  }
+  for (int d = 4 * threadIdx.x; d < D; d += 4 * blockDim.x) {
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int j = 0; j < topk; ++j) {
+      const float4 v = *reinterpret_cast<const float4*>(y + (size_t)pos[j] * D + d);
+      acc.x = __fadd_rn(acc.x, v.x);
+      acc.y = __fadd_rn(acc.y, v.y);
+      acc.z = __fadd_rn(acc.z, v.z);
+      acc.w = __fadd_rn(acc.w, v.w);
+    }
+    const size_t o = (size_t)n * D + d;
+    store2(out, o, out_f32, acc.x, acc.y);
+    store2(out, o + 2, out_f32, acc.z, acc.w);
+  }
+}
+
+template <int BITS, int MT, int NT, bool RT, int EPI, bool GATHER>
+void launch(const PassArgs& a, int S, int col_blocks, cudaStream_t st) {
+  qmoe_pass_kernel<BITS, MT, NT, RT, EPI, GATHER><<<dim3(col_blocks, S), kThreads, 0, st>>>(a);
+}
+
+// Tiles by bm: one 16-row tile (bm <= 16) with 8 columns, or two with 32
+// where N allows; the act pass always pairs 8 gate and 8 up columns.
+template <int BITS, bool RT, int EPI, bool GATHER>
+void pass(const PassArgs& a, int S, cudaStream_t st) {
+  if constexpr (EPI == kActInner) {
+    if (a.bm <= 16) launch<BITS, 1, 2, RT, EPI, GATHER>(a, S, a.F / 8, st);
+    else launch<BITS, 2, 2, RT, EPI, GATHER>(a, S, a.F / 8, st);
+  } else if constexpr (EPI == kWeighted) {  // N = D, a multiple of 128
+    if (a.bm <= 16) launch<BITS, 1, 1, RT, EPI, GATHER>(a, S, a.N / 8, st);
+    else launch<BITS, 2, 4, RT, EPI, GATHER>(a, S, a.N / 32, st);
+  } else {
+    if (a.bm <= 16) launch<BITS, 1, 1, RT, EPI, GATHER>(a, S, a.N / 8, st);
+    else if (a.N % 32 == 0) launch<BITS, 2, 4, RT, EPI, GATHER>(a, S, a.N / 32, st);
+    else launch<BITS, 2, 1, RT, EPI, GATHER>(a, S, a.N / 8, st);
+  }
+}
+
+template <bool RT, int EPI, bool GATHER>
+int pass_bits(int bits, const PassArgs& a, int S, cudaStream_t st) {
+  switch (bits) {
+    case 2: pass<2, RT, EPI, GATHER>(a, S, st); break;
+    case 4: pass<4, RT, EPI, GATHER>(a, S, st); break;
+    case 8: pass<8, RT, EPI, GATHER>(a, S, st); break;
+    default: return -1;
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace gqt
+
+using gqt::PassArgs;
+
+// Each entry point returns 0, -1 for an unsupported configuration, or the
+// CUDA error of its launches. The caller (ops/qmoe.py) checks the contract:
+// bf16 rows of K with 16-byte aligned rows, bm a multiple of 8 up to 32,
+// g % 128 == 0 and K % g == 0, N % 8 == 0, int32 plan arrays on the device,
+// S <= 65535; and allocates the outputs and scratch.
+
+// K13: out [S*bm, N] (f32 or bf16) = each slot's rows x dequant(qw[ids[s]]).
+extern "C" int gqt_qmoe_matmul(const void* x, const void* ids, const void* counts, int S,
+                               int bm, int K, int N, const void* qw, const void* sc, int Gp,
+                               int g, float zc, int bits, int out_f32, void* out,
+                               void* stream) {
+  PassArgs a{static_cast<const __nv_bfloat16*>(x), K, nullptr,
+             static_cast<const int*>(ids), static_cast<const int*>(counts), nullptr,
+             bm, K, N, static_cast<const uint32_t*>(qw),
+             static_cast<const __nv_bfloat16*>(sc), Gp, g, zc, nullptr, out, out_f32, 0};
+  return gqt::pass_bits<false, gqt::kStoreMasked, false>(bits, a, S,
+                                                         static_cast<cudaStream_t>(stream));
+}
+
+// K11 (n_used given) and K12 (n_used NULL): the expert MLP per slot, the ic
+// contract, inner [S*bm, F] bf16 scratch, out [S*bm, D] (f32 or bf16).
+extern "C" int gqt_qmoe_mlp(const void* x, const void* ids, const void* counts,
+                            const void* n_used, int S, int bm, int D, int F, const void* qw_gu,
+                            const void* s_gu, int Gp_gu, const void* qw_d, const void* s_d,
+                            int Gp_d, int g, float zc_gu, float zc_d, int bits, int out_f32,
+                            void* inner, void* out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* idp = static_cast<const int*>(ids);
+  const int* cp = static_cast<const int*>(counts);
+  const int* up = static_cast<const int*>(n_used);
+  PassArgs gu{static_cast<const __nv_bfloat16*>(x), D, nullptr, idp, cp, up, bm, D, 2 * F,
+              static_cast<const uint32_t*>(qw_gu), static_cast<const __nv_bfloat16*>(s_gu),
+              Gp_gu, g, zc_gu, nullptr, inner, 0, F};
+  int rc = gqt::pass_bits<false, gqt::kActInner, false>(bits, gu, S, st);
+  if (rc != 0) return rc;
+  PassArgs dn{static_cast<const __nv_bfloat16*>(inner), F, nullptr, idp, cp, up, bm, F, D,
+              static_cast<const uint32_t*>(qw_d), static_cast<const __nv_bfloat16*>(s_d),
+              Gp_d, g, zc_d, nullptr, out, out_f32, 0};
+  return gqt::pass_bits<false, gqt::kStoreMasked, false>(bits, dn, S, st);
+}
+
+template <bool RT_GU, bool RT_D>
+static int e2e_passes(int bits, const PassArgs& gu, const PassArgs& dn, int S,
+                      cudaStream_t st) {
+  int rc = gqt::pass_bits<RT_GU, gqt::kActInner, true>(bits, gu, S, st);
+  if (rc != 0) return rc;
+  return gqt::pass_bits<RT_D, gqt::kWeighted, false>(bits, dn, S, st);
+}
+
+// K10: out [N, D] (f32 or bf16) = per token, the sum in slot order of
+// w * expert_mlp(x[token]) over its slot rows; inner [S*bm, F] bf16 and
+// ybuf [S*bm, D] f32 are scratch. tok/w [S*bm] per slot row, tok_pos [N, topk].
+extern "C" int gqt_qmoe_e2e(const void* x, const void* ids, const void* n_used,
+                            const void* tok, const void* w, const void* tok_pos, int S, int bm,
+                            int N, int topk, int D, int F, const void* qw_gu, const void* s_gu,
+                            int Gp_gu, const void* qw_d, const void* s_d, int Gp_d, int g_gu,
+                            int g_d, float zc_gu, float zc_d, int rt_gu, int rt_d, int bits,
+                            int out_f32, void* inner, void* ybuf, void* out, void* stream) {
+  if (topk < 1 || topk > gqt::kMaxTopk || D % 128) return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* idp = static_cast<const int*>(ids);
+  const int* up = static_cast<const int*>(n_used);
+  PassArgs gu{static_cast<const __nv_bfloat16*>(x), D, static_cast<const int*>(tok), idp,
+              nullptr, up, bm, D, 2 * F, static_cast<const uint32_t*>(qw_gu),
+              static_cast<const __nv_bfloat16*>(s_gu), Gp_gu, g_gu, zc_gu, nullptr, inner, 0, F};
+  PassArgs dn{static_cast<const __nv_bfloat16*>(inner), F, nullptr, idp, nullptr, up, bm, F, D,
+              static_cast<const uint32_t*>(qw_d), static_cast<const __nv_bfloat16*>(s_d),
+              Gp_d, g_d, zc_d, static_cast<const float*>(w), ybuf, 1, 0};
+  int rc = rt_gu ? (rt_d ? e2e_passes<true, true>(bits, gu, dn, S, st)
+                         : e2e_passes<true, false>(bits, gu, dn, S, st))
+                 : (rt_d ? e2e_passes<false, true>(bits, gu, dn, S, st)
+                         : e2e_passes<false, false>(bits, gu, dn, S, st));
+  if (rc != 0) return rc;
+  gqt::qmoe_combine_kernel<<<N, 128, 0, st>>>(static_cast<const float*>(ybuf),
+                                              static_cast<const int*>(tok_pos), topk, D,
+                                              out_f32, out);
+  return (int)cudaGetLastError();
+}

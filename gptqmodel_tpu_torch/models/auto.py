@@ -25,7 +25,11 @@ from gptqmodel_tpu_torch.inference.engine import greedy_generate
 from gptqmodel_tpu_torch.looper.calibration import CalibrationBatches, prepare_calibration
 from gptqmodel_tpu_torch.looper.quantize_loop import quantize_model
 from gptqmodel_tpu_torch.models.loader import CheckpointReader, build_params_tree
-from gptqmodel_tpu_torch.models.optimize import enable_fused_mlp, fuse_projections
+from gptqmodel_tpu_torch.models.optimize import (
+    enable_fused_mlp,
+    fuse_projections,
+    stack_moe_experts,
+)
 from gptqmodel_tpu_torch.models.spec import ModelSpec, load_hf_config, spec_from_hf_config
 from gptqmodel_tpu_torch.models.writer import DEFAULT_MAX_SHARD, save_quantized
 from gptqmodel_tpu_torch.ops.registry import post_init_params
@@ -95,6 +99,10 @@ class BaseQModel:
         ``layer_durations``."""
         if self.quantized:
             raise RuntimeError("model is already quantized")
+        if self.spec.model_type != "llama":
+            raise NotImplementedError(
+                f"quantizing {self.spec.model_type}: the port quantizes llama so far; "
+                "MoE quantization is ROADMAP queue 1, item 12")
         if not isinstance(calibration, CalibrationBatches):
             calibration = prepare_calibration(
                 calibration, batch_size=batch_size, max_length=max_length,
@@ -113,6 +121,10 @@ class BaseQModel:
     def save(self, save_dir: str | Path, max_shard_size: Optional[int] = None) -> None:
         if not self.quantized or self.params is None:
             raise RuntimeError("nothing to save: model not quantized/loaded")
+        if any("experts_stacked_q" in lp.get("mlp", {}) for lp in self.params["model"]["layers"]):
+            raise NotImplementedError(
+                "save after optimize(): stacked experts are a runtime form with bf16 "
+                "scales; save the model as loaded or quantized")
         save_quantized(save_dir, self.params, self.qcfg, self.hf_config,
                        source_dir=self.model_dir, quant_log=self.quant_log,
                        max_shard_size=max_shard_size or DEFAULT_MAX_SHARD)
@@ -133,7 +145,9 @@ class BaseQModel:
         )
 
     def optimize(self) -> "BaseQModel":
-        """Fuse q/k/v and gate/up into single wide products and let eligible
+        """Fuse q/k/v and gate/up into single wide products, stack each
+        layer's packed experts for the MoE kernels (K10-K13) and let eligible
         MLPs run as one fused kernel (K2), the JAX facade's default."""
-        self.params = enable_fused_mlp(self.spec, fuse_projections(self.spec, self.params))
+        params = stack_moe_experts(self.spec, fuse_projections(self.spec, self.params))
+        self.params = enable_fused_mlp(self.spec, params)
         return self

@@ -2,10 +2,11 @@
 
 ``fuse_projections`` merges q/k/v into ``qkv_proj`` and gate/up into
 ``gate_up_proj`` (concatenated along the output columns, gate first), so one
-wider K1 launch replaces three or two. ``enable_fused_mlp`` marks the layers
-whose MLP K2 can run. The JAX package's version also re-packs down to the
-TPU kernel's tile; the port's kernels read the interchange layout, so there
-is nothing to re-pack.
+wider K1 launch replaces three or two. ``stack_moe_experts`` stacks each
+layer's packed experts for the MoE kernels (``ops/qmoe.py``).
+``enable_fused_mlp`` marks the layers whose MLP K2 can run. The JAX
+package's version also re-packs down to the TPU kernel's tile; the port's
+kernels read the interchange layout, so there is nothing to re-pack.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 from gptqmodel_tpu_torch.models.spec import ModelSpec
 from gptqmodel_tpu_torch.models.transformer import model_layers
 from gptqmodel_tpu_torch.ops.qlinear import QuantLinear
+from gptqmodel_tpu_torch.ops.qmoe import fuse_gate_up, stack_packed_experts
 from gptqmodel_tpu_torch.ops.registry import k1_eligible
 
 
@@ -58,11 +60,37 @@ def fuse_projections(spec: ModelSpec, params: dict) -> dict:
                 attn["qkv_proj"] = _concat_quant(mods)
                 del attn["q_proj"], attn["k_proj"], attn["v_proj"]
         mlp = lp["mlp"]
-        if all(k in mlp for k in ("gate_proj", "up_proj")):
+        if all(k in mlp for k in ("gate_proj", "up_proj")) and "experts" not in mlp:
             mods = [mlp["gate_proj"], mlp["up_proj"]]
             if _can_fuse(mods):
                 mlp["gate_up_proj"] = _concat_quant(mods)
                 del mlp["gate_proj"], mlp["up_proj"]
+    return params
+
+
+def stack_moe_experts(spec: ModelSpec, params: dict) -> dict:
+    """In place, layer by layer: a list of packed experts becomes
+    ``experts_stacked_q`` (``{"gateup", "down"}``, or ``{"gate", "up",
+    "down"}`` where gate and up differ in geometry), stacked on the experts'
+    device, and the per-expert modules are dropped as soon as their layer is
+    stacked, so the experts are never held twice. A layer whose experts are
+    outside the stack's contract keeps its list (the dense loop). The
+    stacked form has bf16 scales and exists at runtime only: ``save`` refuses
+    it. The JAX package's packed branch (``optimize.py:91-150``)."""
+    for lp in model_layers(params):
+        mp = lp["mlp"]
+        experts = mp.get("experts")
+        if not experts or not all(isinstance(e.get("gate_proj"), QuantLinear)
+                                  for e in experts):
+            continue
+        sq = {name: stack_packed_experts([e[f"{name}_proj"] for e in experts])
+              for name in ("gate", "up", "down")}
+        if any(v is None for v in sq.values()):
+            continue
+        fused = fuse_gate_up(sq["gate"], sq["up"])
+        mp["experts_stacked_q"] = sq if fused is None else {"gateup": fused,
+                                                             "down": sq["down"]}
+        del mp["experts"]
     return params
 
 

@@ -1,7 +1,10 @@
 """ModelSpec: the static architecture the forward needs, from an HF config.
 
-The llama subset of the JAX package's ``models/spec.py``: RMSNorm, RoPE
-(default or llama3 scaling), grouped-query attention, gated SiLU MLP.
+The subset of the JAX package's ``models/spec.py`` that the port serves:
+llama (RMSNorm, RoPE with default or llama3 scaling, grouped-query
+attention, gated SiLU MLP) and qwen3_moe (the same, plus a per-head RMSNorm
+on q and k before RoPE and top-k routed experts in every layer, softmax
+scoring).
 """
 
 from __future__ import annotations
@@ -27,15 +30,34 @@ class ModelSpec:
     tie_word_embeddings: bool = False
     hidden_act: str = "silu"
     rope_scaling: Optional[dict] = None
+    qk_norm: bool = False  # qwen3: per-head RMSNorm on q and k before RoPE
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_intermediate_size: int = 0
+    norm_topk_prob: bool = True
+    moe_scoring: str = "softmax"  # the only scoring the port routes with
+
+
+MODEL_TYPES = ("llama", "qwen3_moe")
 
 
 def spec_from_hf_config(cfg: dict[str, Any]) -> ModelSpec:
-    """Build a ModelSpec from a parsed HF ``config.json`` (llama only)."""
+    """Build a ModelSpec from a parsed HF ``config.json`` (llama or
+    qwen3_moe, as the JAX package's ``spec.py:880-891`` reads them)."""
     mt = cfg.get("model_type", "llama")
-    if mt != "llama":
-        raise NotImplementedError(f"model_type {mt!r}: the port runs llama so far")
+    if mt not in MODEL_TYPES:
+        raise NotImplementedError(f"model_type {mt!r}: the port runs {', '.join(MODEL_TYPES)}")
     hidden = cfg["hidden_size"]
     heads = cfg["num_attention_heads"]
+    moe = {}
+    if mt == "qwen3_moe":
+        moe = dict(
+            qk_norm=True,
+            num_experts=cfg.get("num_experts", 0),
+            num_experts_per_tok=cfg.get("num_experts_per_tok", 0),
+            moe_intermediate_size=cfg.get("moe_intermediate_size", 0),
+            norm_topk_prob=cfg.get("norm_topk_prob", True),
+        )
     return ModelSpec(
         model_type=mt,
         vocab_size=cfg["vocab_size"],
@@ -50,6 +72,7 @@ def spec_from_hf_config(cfg: dict[str, Any]) -> ModelSpec:
         tie_word_embeddings=cfg.get("tie_word_embeddings", False),
         hidden_act=cfg.get("hidden_act", "silu"),
         rope_scaling=cfg.get("rope_scaling"),
+        **moe,
     )
 
 

@@ -32,7 +32,8 @@ LIB_NAME = "libgptqmodel_tpu_torch.so"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES = {"qmatmul": 0, "qmlp": 0, "gptq_whole_solve": 0, "gptq_block_inner": 0}
+LAUNCHES = {"qmatmul": 0, "qmlp": 0, "gptq_whole_solve": 0, "gptq_block_inner": 0,
+            "qmoe_e2e": 0, "qmoe_mlp_dyn": 0, "qmoe_mlp": 0, "qmoe_matmul": 0}
 # what the last build did: commands, seconds, and the ptxas lines per source
 BUILD_INFO: dict = {}
 
@@ -111,6 +112,14 @@ def lib() -> ctypes.CDLL:
             handle.gqt_gptq_whole_solve.restype = i
             handle.gqt_gptq_block_inner.argtypes = [vp] * 4 + [i, f] + [vp] * 5
             handle.gqt_gptq_block_inner.restype = i
+            handle.gqt_qmoe_matmul.argtypes = [vp] * 3 + [i] * 4 + [vp, vp, i, i, f, i, i, vp, vp]
+            handle.gqt_qmoe_matmul.restype = i
+            handle.gqt_qmoe_mlp.argtypes = ([vp] * 4 + [i] * 4 + [vp, vp, i, vp, vp, i, i, f, f]
+                                            + [i, i, vp, vp, vp])
+            handle.gqt_qmoe_mlp.restype = i
+            handle.gqt_qmoe_e2e.argtypes = ([vp] * 6 + [i] * 6 + [vp, vp, i, vp, vp, i, i, i]
+                                            + [f, f] + [i] * 4 + [vp] * 4)
+            handle.gqt_qmoe_e2e.restype = i
             _lib = handle
         return _lib
 

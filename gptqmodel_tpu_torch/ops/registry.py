@@ -6,6 +6,13 @@ launches the kernel for a CUDA tensor and runs its plain version only for a
 CPU tensor. A module outside the contract runs the dequantize-then-matmul
 reference on the CPU, and raises ``NotImplementedError`` on the card, naming
 the TPU kernel whose port a later slice brings.
+
+Stacked MoE experts (``ops/qmoe.py``) take K10, or with the JAX package's
+switches K11/K12, when ``qmoe_supported`` holds, else K13 or the dense
+fallback; the choice itself is ``models/transformer._moe_ragged_apply_q``.
+``qmoe_supported`` is the JAX package's eligibility on bits, widths and
+groups, without its TPU VMEM budgets. On the card a stack outside the kernels' own contract
+(``qmoe_kernel_check``) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -18,6 +25,8 @@ from gptqmodel_tpu_torch.ops import pack as packing
 from gptqmodel_tpu_torch.ops.qlinear import QuantLinear, qlinear_forward_torch
 from gptqmodel_tpu_torch.ops.qmatmul import qmatmul, qmatmul_supported
 from gptqmodel_tpu_torch.ops.qmlp import qmlp, qmlp_supported
+from gptqmodel_tpu_torch.ops.qmoe import KERNEL_BITS as QMOE_BITS
+from gptqmodel_tpu_torch.ops.qmoe import kernel_contract
 
 
 def post_init_module(p: QuantLinear) -> QuantLinear:
@@ -98,3 +107,32 @@ def qmlp_forward(gu: QuantLinear, down: QuantLinear, x: torch.Tensor, act: str):
     if down.bias is not None:
         y = y + down.bias.to(y.dtype)
     return y
+
+
+def qmoe_supported(*, bits, D, F, G_gu, G_d, act) -> bool:
+    """K10's and K11/K12's eligibility for a fused gate|up stack and its down
+    stack: the JAX package's ``qmoe_e2e_supported`` (``pallas_qmoe.py:892``)
+    and ``qmoe_mlp_supported`` (``:404``) ask the same of bits, widths and
+    groups and differ only in their TPU VMEM budgets, which the port has
+    not."""
+    if bits not in QMOE_BITS or act != "silu":
+        return False
+    pf = 32 // bits
+    if D % pf or F % pf or (2 * F) % 128 or D % 128:
+        return False
+    # whole groups per extraction part of the JAX kernels' contracts
+    rows_gu = (2 * D // pf) if bits != 8 else (D // pf)
+    rows_d = (2 * F // pf) if bits != 8 else (F // pf)
+    return rows_gu % G_gu == 0 and rows_d % G_d == 0
+
+
+def qmoe_kernel_check(x: torch.Tensor, *stacks) -> None:
+    """On the card, raise ``NotImplementedError`` for a stack outside the
+    MoE kernels' contract, naming what they need; on the CPU the plain
+    versions take any stack."""
+    if x.device.type == "cpu":
+        return
+    for st in stacks:
+        why = kernel_contract(st)
+        if why is not None:
+            raise NotImplementedError(f"no CUDA MoE kernel for this stack: {why}")

@@ -1,4 +1,4 @@
-"""Random llama checkpoints, written with numpy from a seed.
+"""Random llama and qwen3_moe checkpoints, written from a seed.
 
 ``write_random_gptq_checkpoint`` writes a llama checkpoint as a GPTQ
 exporter leaves it: ``config.json`` (with ``quantization_config``),
@@ -7,9 +7,14 @@ modules hold uniform random codes, one symmetric zero point in the v1 form and
 fp16 group scales; embeddings, norms and the dense ``lm_head`` are bf16.
 ``write_random_fp_checkpoint`` writes the dense checkpoint that quantization
 starts from: every linear weight N(0, 0.02) (HF's ``initializer_range``),
-norms 1, drawn by torch on the device the caller names. Both put one shard per decoder layer. Nothing is downloaded. The
-tests write tiny ones; ``chip_smoke.py`` writes them at Llama-3-8B's
-published widths (about 5.7 GB packed, 16 GB dense in bf16).
+norms 1, drawn by torch on the device the caller names.
+``write_random_qwen3_moe_checkpoint`` writes a GPTQ qwen3_moe checkpoint the
+same way: packed attention and experts, the dense bf16 router ``mlp.gate``,
+and ``q_norm``/``k_norm``, drawn by torch on the device the caller names. All
+put one shard per decoder layer and hold one layer in host memory at a time.
+Nothing is downloaded. The tests write tiny ones; ``chip_smoke.py`` writes
+them at Llama-3-8B's published widths (about 5.7 GB packed, 16 GB dense in
+bf16) and at Qwen3-30B-A3B's (about 17 GB packed).
 """
 
 from __future__ import annotations
@@ -45,6 +50,35 @@ LLAMA3_8B_CONFIG = {
     "torch_dtype": "bfloat16",
 }
 
+# Qwen/Qwen3-30B-A3B config.json (every layer sparse: decoder_sparse_step 1,
+# no mlp_only_layers)
+QWEN3_30B_A3B_CONFIG = {
+    "architectures": ["Qwen3MoeForCausalLM"],
+    "model_type": "qwen3_moe",
+    "vocab_size": 151936,
+    "hidden_size": 2048,
+    "intermediate_size": 6144,
+    "moe_intermediate_size": 768,
+    "num_hidden_layers": 48,
+    "num_attention_heads": 32,
+    "num_key_value_heads": 4,
+    "head_dim": 128,
+    "num_experts": 128,
+    "num_experts_per_tok": 8,
+    "norm_topk_prob": True,
+    "decoder_sparse_step": 1,
+    "mlp_only_layers": [],
+    "rms_norm_eps": 1e-6,
+    "rope_theta": 1000000.0,
+    "max_position_embeddings": 40960,
+    "attention_bias": False,
+    "tie_word_embeddings": False,
+    "hidden_act": "silu",
+    "bos_token_id": 151643,
+    "eos_token_id": 151645,
+    "torch_dtype": "bfloat16",
+}
+
 WEIGHT_STD = 0.02
 
 
@@ -54,19 +88,26 @@ def gptq_config(bits: int = 4, group_size: int = 128) -> dict:
             "lm_head": False, "quant_method": "gptq", "checkpoint_format": "gptq"}
 
 
+def _module_layout(in_f: int, out_f: int, bits: int, group_size: int):
+    """What every random module shares: codes per word, the v1 zero word as
+    an int32 (v1 stores zero - 1), the number of groups and the scale unit. A
+    uniform spread in [0.5, 1.5) times the unit gives dequantized weights with
+    a standard deviation near ``WEIGHT_STD``."""
+    pf = 32 // bits
+    word = sum((2 ** (bits - 1) - 1) << (bits * j) for j in range(pf))
+    code_std = math.sqrt((4**bits - 1) / 12)  # uniform codes, bits in (2, 4, 8)
+    return pf, word - 2**32 if word >= 2**31 else word, in_f // group_size, WEIGHT_STD / code_std
+
+
 def random_gptq_module(rng: np.random.Generator, in_f: int, out_f: int, bits: int = 4,
                        group_size: int = 128) -> dict[str, np.ndarray]:
     """qweight, qzeros (v1), scales and g_idx of one symmetric module whose
     dequantized weights have a standard deviation near ``WEIGHT_STD``."""
-    pf = 32 // bits
-    v1_zero = 2 ** (bits - 1) - 1  # v1 stores zero - 1
-    word = sum(v1_zero << (bits * j) for j in range(pf))
-    code_std = math.sqrt((4**bits - 1) / 12)  # uniform codes, bits in (2, 4, 8)
-    groups = in_f // group_size
-    scales = rng.uniform(0.5, 1.5, (groups, out_f)) * (WEIGHT_STD / code_std)
+    pf, word, groups, unit = _module_layout(in_f, out_f, bits, group_size)
+    scales = rng.uniform(0.5, 1.5, (groups, out_f)) * unit
     return {
         "qweight": rng.integers(0, 2**32, (in_f // pf, out_f), dtype=np.uint32).view(np.int32),
-        "qzeros": np.full((groups, out_f // pf), word, np.uint32).view(np.int32),
+        "qzeros": np.full((groups, out_f // pf), word, np.int32),
         "scales": scales.astype(np.float16),
         "g_idx": (np.arange(in_f) // group_size).astype(np.int32),
     }
@@ -106,7 +147,9 @@ def write_random_gptq_checkpoint(path: str | Path, hf_config: dict, seed: int = 
     from its own stream of ``seed``. Returns the bytes of the shards."""
     qcfg = gptq_config(bits, group_size)
 
-    def layer(i, pre, projections):
+    projections = _projections(hf_config)
+
+    def layer(i, pre):
         rng = np.random.default_rng([seed, 1, i])
         tensors = {}
         for proj, (in_f, out_f) in projections.items():
@@ -137,7 +180,9 @@ def write_random_fp_checkpoint(path: str | Path, hf_config: dict, seed: int = 0,
         w = torch.randn(shape, generator=g, device=device) * WEIGHT_STD
         return w.to(dtype).cpu()
 
-    def layer(i, pre, projections):
+    projections = _projections(hf_config)
+
+    def layer(i, pre):
         return {f"{pre}{proj}.weight": normal((out_f, in_f), [1, i, j])
                 for j, (proj, (in_f, out_f)) in enumerate(projections.items())}
 
@@ -147,14 +192,13 @@ def write_random_fp_checkpoint(path: str | Path, hf_config: dict, seed: int = 0,
 
 def _write_llama(path, hf_config: dict, layer_tensors, normal, config_extra: dict,
                  dtype=torch.bfloat16) -> int:
-    """Shards of a llama checkpoint with ``layer_tensors(i, prefix,
-    projections)`` for decoder layer ``i``, ``normal(shape, key)`` for the
-    embedding and lm_head, the index and ``config.json``."""
+    """Shards of a llama-lineage checkpoint with ``layer_tensors(i, prefix)``
+    for decoder layer ``i``, ``normal(shape, key)`` for the embedding and
+    lm_head, the index and ``config.json``."""
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
     c = hf_config
     D, V, L = c["hidden_size"], c["vocab_size"], c["num_hidden_layers"]
-    projections = _projections(c)
     tied = c.get("tie_word_embeddings", False)
     n_files = L + (1 if tied else 2)
     weight_map: dict[str, str] = {}
@@ -173,11 +217,68 @@ def _write_llama(path, hf_config: dict, layer_tensors, normal, config_extra: dic
         pre = f"model.layers.{i}."
         shard(1 + i, {pre + "input_layernorm.weight": ones,
                       pre + "post_attention_layernorm.weight": ones,
-                      **layer_tensors(i, pre, projections)})
+                      **layer_tensors(i, pre)})
     if not tied:
         shard(L + 1, {"lm_head.weight": normal((V, D), [2])})
 
     (path / "model.safetensors.index.json").write_text(json.dumps(
         {"metadata": {"total_size": total}, "weight_map": weight_map}, indent=1))
     (path / "config.json").write_text(json.dumps({**hf_config, **config_extra}, indent=1))
+    return total
+
+
+def _torch_gptq_module(gen: torch.Generator, in_f: int, out_f: int, bits: int,
+                       group_size: int, device) -> dict[str, torch.Tensor]:
+    """``random_gptq_module`` drawn by ``gen`` on ``device``, on the CPU."""
+    pf, word, groups, unit = _module_layout(in_f, out_f, bits, group_size)
+    qweight = torch.randint(-2**31, 2**31, (in_f // pf, out_f), generator=gen,
+                            dtype=torch.int64, device=device).to(torch.int32)
+    scales = (torch.rand((groups, out_f), generator=gen, device=device) + 0.5) * unit
+    return {"qweight": qweight.cpu(),
+            "qzeros": torch.full((groups, out_f // pf), word, dtype=torch.int32),
+            "scales": scales.to(torch.float16).cpu(),
+            "g_idx": (torch.arange(in_f, dtype=torch.int32) // group_size)}
+
+
+def write_random_qwen3_moe_checkpoint(path: str | Path, hf_config: dict, seed: int = 0,
+                                      bits: int = 4, group_size: int = 128,
+                                      device: str | torch.device = "cpu") -> int:
+    """Write a GPTQ v1 qwen3_moe checkpoint into ``path``, sharded as
+    ``write_random_gptq_checkpoint`` does: per layer the packed q/k/v/o
+    projections, ``q_norm``/``k_norm`` (1 + N(0, 0.1)), the dense router
+    ``mlp.gate`` (N(0, 0.02)) and every expert's packed gate/up/down. Each
+    tensor draws from its own torch stream keyed by the seed, on ``device``;
+    the same seed and device give the same checkpoint. Returns the bytes of
+    the shards."""
+    c = hf_config
+    qcfg = gptq_config(bits, group_size)
+    D, E, F = c["hidden_size"], c["num_experts"], c["moe_intermediate_size"]
+    hd = c.get("head_dim") or D // c["num_attention_heads"]
+    attn = {k: v for k, v in _projections(c).items() if k.startswith("self_attn.")}
+
+    def gen(key) -> torch.Generator:
+        return torch.Generator(device).manual_seed(
+            int(np.random.SeedSequence([seed, *key]).generate_state(1)[0]))
+
+    def normal(shape, key, std=WEIGHT_STD):
+        w = torch.randn(shape, generator=gen(key), device=device) * std
+        return w.to(torch.bfloat16).cpu()
+
+    def layer(i, pre):
+        g = gen([1, i])
+        tensors = {}
+        mods = dict(attn)
+        for e in range(E):
+            mods.update({f"mlp.experts.{e}.gate_proj": (D, F), f"mlp.experts.{e}.up_proj": (D, F),
+                         f"mlp.experts.{e}.down_proj": (F, D)})
+        for proj, (in_f, out_f) in mods.items():
+            for leaf, t in _torch_gptq_module(g, in_f, out_f, bits, group_size, device).items():
+                tensors[f"{pre}{proj}.{leaf}"] = t
+        for j, norm in enumerate(("q_norm", "k_norm")):
+            tensors[f"{pre}self_attn.{norm}.weight"] = 1 + normal((hd,), [3, i, j], 0.1)
+        tensors[f"{pre}mlp.gate.weight"] = normal((E, D), [4, i])
+        return tensors
+
+    total = _write_llama(path, hf_config, layer, normal, {"quantization_config": qcfg})
+    (Path(path) / QUANT_CONFIG_FILENAME).write_text(json.dumps(qcfg, indent=1))
     return total

@@ -7,6 +7,8 @@ it runs on a machine that has only PyTorch:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -21,11 +23,16 @@ from gptqmodel_tpu_torch.ops.gptq_solve import (
     gptq_whole_solve_plain,
 )
 from gptqmodel_tpu_torch.ops.qmatmul import qmatmul, qmatmul_plain
+from gptqmodel_tpu_torch.ops import qmoe
 from gptqmodel_tpu_torch.ops.qmlp import qmlp, qmlp_plain
 from gptqmodel_tpu_torch.ops.registry import post_init_module
 from gptqmodel_tpu_torch.quantization.gptq import gptq_solve_core, hessian_inverse
 from gptqmodel_tpu_torch.quantization.quantizer import _minmax, _params_from_range
-from gptqmodel_tpu_torch.utils.testing import random_quant_linear, write_random_gptq_checkpoint
+from gptqmodel_tpu_torch.utils.testing import (
+    random_quant_linear,
+    write_random_gptq_checkpoint,
+    write_random_qwen3_moe_checkpoint,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -34,6 +41,13 @@ TINY_LLAMA = {
     "intermediate_size": 1024, "num_hidden_layers": 2, "num_attention_heads": 4,
     "num_key_value_heads": 2, "rms_norm_eps": 1e-5, "rope_theta": 500000.0,
     "max_position_embeddings": 2048, "tie_word_embeddings": False, "hidden_act": "silu",
+}
+TINY_QWEN3_MOE = {
+    "model_type": "qwen3_moe", "vocab_size": 1024, "hidden_size": 512,
+    "intermediate_size": 1024, "moe_intermediate_size": 256, "num_hidden_layers": 2,
+    "num_attention_heads": 4, "num_key_value_heads": 2, "head_dim": 128, "num_experts": 16,
+    "num_experts_per_tok": 4, "norm_topk_prob": True, "rms_norm_eps": 1e-6,
+    "rope_theta": 1e6, "tie_word_embeddings": False, "hidden_act": "silu",
 }
 
 
@@ -154,8 +168,8 @@ def test_facade_runs_the_kernels(cuda_device, tmp_path, monkeypatch):
     tokens = model.generate(ids, max_new_tokens=new)
     assert tokens.shape == (B, new) and ((tokens >= 0) & (tokens < 1024)).all()
     steps = new - 1
-    assert _build.LAUNCHES == {"qmatmul": 4 * L + 2 * L * steps, "qmlp": L * steps,
-                               "gptq_whole_solve": 0, "gptq_block_inner": 0}
+    assert _build.LAUNCHES == dict.fromkeys(_build.LAUNCHES, 0) | {
+        "qmatmul": 4 * L + 2 * L * steps, "qmlp": L * steps}
 
     ids_t = torch.as_tensor(ids, device=cuda_device)
     with torch.inference_mode():
@@ -238,3 +252,188 @@ def test_gptq_solve_routes_on_the_card(cuda_device, monkeypatch):
     monkeypatch.delenv("GPTQ_TPU_SOLVER")
     with pytest.raises(NotImplementedError):
         gptq_solve_core(W, U, bits=4, group_size=256, sym=True)
+
+
+# --------------------------------------------------------------- K10-K13
+
+def _stacks(rng, E, D, F, bits, dev, group_size=128):
+    """A fused gate|up stack and a down stack of E random experts."""
+    mods = {n: [post_init_module(random_quant_linear(rng, i, o, bits, group_size, device=dev))
+                for _ in range(E)]
+            for n, (i, o) in (("gate", (D, F)), ("up", (D, F)), ("down", (F, D)))}
+    st = {n: qmoe.stack_packed_experts(m) for n, m in mods.items()}
+    return qmoe.fuse_gate_up(st["gate"], st["up"]), st["down"]
+
+
+def _routes(rng, N, E, k, dev):
+    logits = torch.from_numpy(rng.standard_normal((N, E), dtype=np.float32)).to(dev)
+    top_w, top_i = transformer._topk(torch.softmax(logits, -1), k)
+    return top_w / top_w.sum(-1, keepdim=True), top_i
+
+
+@pytest.mark.parametrize("N,E", [(16, 32), (1024, 128), (8, 5000)])
+def test_topk_breaks_ties_to_the_lower_index(cuda_device, N, E):
+    """``_topk`` on the card keeps ``lax.top_k``'s order, equal values in
+    index order, and equals ``_topk`` on the CPU and numpy's stable argsort,
+    with router-width rows and one row wide enough for another sort."""
+    rng = np.random.default_rng(N + E)
+    x = rng.standard_normal((N, E)).astype(np.float32)
+    x[:, 5] = x[:, 1]
+    x[:, 9] = x[:, 1]
+    x[:, E - 1] = x[:, 1]
+    x[:3] = 0.25  # whole rows of ties
+    order = np.argsort(-x, axis=-1, kind="stable")
+    for k in (2, 8):
+        v, i = transformer._topk(torch.from_numpy(x).to(cuda_device), k)
+        cv, ci = transformer._topk(torch.from_numpy(x), k)
+        np.testing.assert_array_equal(i.cpu().numpy(), order[:, :k])
+        np.testing.assert_array_equal(i.cpu().numpy(), ci.numpy())
+        np.testing.assert_array_equal(v.cpu().numpy(), cv.numpy())
+
+
+def _bm(M):
+    return 8 if M <= 128 else (16 if M <= 1024 else 32)
+
+
+def _e2e(x, top_w, top_i, gu, down, bm, fn=qmoe.qmoe_mlp_e2e):
+    N, k = top_i.shape
+    E = gu.qweight.shape[0]
+    ids, counts, row_pos = qmoe.plan_rows(top_i.reshape(-1), E, bm,
+                                          qmoe.slot_bound(N * k, E, bm))
+    ops = qmoe.e2e_operands(row_pos.reshape(N, k), top_w, counts, bm)
+    return fn(x, ids, *ops, gu.qweight, gu.scales, down.qweight, down.scales, bits=gu.bits,
+              G_gu=gu.G, G_d=down.G, F=gu.out_features // 2, bm=bm, zc_gu=gu.zero_const,
+              zc_d=down.zero_const, rt_gu=gu.rt, rt_d=down.rt)
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("rt", [True, False])
+@pytest.mark.parametrize("N,k", [(1, 8), (8, 8), (300, 4)])
+def test_qmoe_e2e_kernel_matches_plain(cuda_device, bits, rt, N, k):
+    """K10 against its plain version: the same exact products in both
+    contracts, f32 sums in another order, inner rounded to bf16 in both:
+    2e-3 relative in norm. Two runs give the same bits."""
+    rng = np.random.default_rng(bits * 10 + N + k)
+    E, D, F = 16, 512, 256
+    gu, down = _stacks(rng, E, D, F, bits, cuda_device)
+    gu, down = (dataclasses.replace(s, rt=rt) for s in (gu, down))
+    x = _x(rng, N, D, cuda_device)
+    top_w, top_i = _routes(rng, N, E, k, cuda_device)
+    bm = _bm(N * k)
+    before = _build.LAUNCHES["qmoe_e2e"]
+    y = _e2e(x, top_w, top_i, gu, down, bm)
+    ref = _e2e(x, top_w, top_i, gu, down, bm, qmoe.qmoe_mlp_e2e_plain)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["qmoe_e2e"] == before + 1
+    assert y.dtype == torch.bfloat16 and y.shape == (N, D)
+    assert _rel(y, ref) <= 2e-3
+    assert torch.equal(y, _e2e(x, top_w, top_i, gu, down, bm))
+
+
+def test_qmoe_e2e_rows_do_not_depend_on_bm(cuda_device):
+    """bm is a tiling choice: 8, 16 and 32 rows per slot give the same bits."""
+    rng = np.random.default_rng(21)
+    E, D, F, N, k = 16, 512, 256, 40, 4
+    gu, down = _stacks(rng, E, D, F, 4, cuda_device)
+    x = _x(rng, N, D, cuda_device)
+    top_w, top_i = _routes(rng, N, E, k, cuda_device)
+    ys = [_e2e(x, top_w, top_i, gu, down, bm) for bm in (8, 16, 32)]
+    assert all(torch.equal(ys[0], y) for y in ys[1:])
+
+
+def _sorted_case(rng, N, k, E, D, dev, bm=8):
+    top_w, top_i = _routes(rng, N, E, k, dev)
+    flat = top_i.reshape(-1)
+    order = torch.sort(flat, stable=True).indices
+    S = qmoe.slot_bound(N * k, E, bm)
+    ids, counts, pos = qmoe.plan_slots(flat[order], E, bm, S)
+    xs = torch.zeros((S * bm, D), dtype=torch.bfloat16, device=dev)
+    xs[pos.long()] = _x(rng, N, D, dev)[order // k]
+    return xs, ids, counts
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("N", [8, 128])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_qmoe_slot_mlp_kernels_match_plain(cuda_device, bits, N, out_dtype):
+    """K11 and K12 against their plain version (ic contract, inner rounded to
+    bf16: 2e-3 relative); K11 equals K12 bit for bit, every run."""
+    rng = np.random.default_rng(bits * 7 + N)
+    E, D, F, k = 16, 512, 256, 8
+    gu, down = _stacks(rng, E, D, F, bits, cuda_device)
+    xs, ids, counts = _sorted_case(rng, N, k, E, D, cuda_device)
+    n_used = (counts > 0).sum().to(torch.int32).reshape(1)
+    w = (gu.qweight, gu.scales, down.qweight, down.scales)
+    kw = dict(bits=bits, G_gu=gu.G, G_d=down.G, F=F, bm=8, zc_gu=gu.zero_const,
+              zc_d=down.zero_const, out_dtype=out_dtype)
+    _build.reset_counts()
+    dyn = qmoe.qmoe_mlp_matmul_dyn(xs, ids, counts, n_used, *w, **kw)
+    grid = qmoe.qmoe_mlp_matmul(xs, ids, counts, *w, **kw)
+    ref = qmoe.qmoe_mlp_matmul_plain(xs, ids, counts, *w, **kw)
+    torch.cuda.synchronize()
+    assert (_build.LAUNCHES["qmoe_mlp_dyn"], _build.LAUNCHES["qmoe_mlp"]) == (1, 1)
+    assert dyn.dtype == out_dtype and torch.equal(dyn, grid)
+    assert torch.equal(dyn, qmoe.qmoe_mlp_matmul_dyn(xs, ids, counts, n_used, *w, **kw))
+    assert _rel(dyn, ref) <= 2e-3
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("N,bm", [(8, 8), (128, 8), (128, 32)])
+def test_qmoe_matmul_kernel_matches_plain(cuda_device, bits, N, bm):
+    """K13 against its plain version: exact products, f32 sums in another
+    order, one rounding: 1e-3 relative; padding rows 0."""
+    rng = np.random.default_rng(bits * 3 + N + bm)
+    E, D, F, k = 16, 512, 256, 8
+    gu, _ = _stacks(rng, E, D, F, bits, cuda_device)
+    xs, ids, counts = _sorted_case(rng, N, k, E, D, cuda_device, bm)
+    kw = dict(bits=bits, G=gu.G, bm=bm, zero_const=gu.zero_const, out_dtype=torch.bfloat16)
+    before = _build.LAUNCHES["qmoe_matmul"]
+    y = qmoe.qmoe_matmul(xs, ids, counts, gu.qweight, gu.scales, **kw)
+    ref = qmoe.qmoe_matmul_plain(xs, ids, counts, gu.qweight, gu.scales, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["qmoe_matmul"] == before + 1
+    assert _rel(y, ref) <= 1e-3
+    pad = torch.arange(bm, device=cuda_device)[None, :] >= counts[:, None]
+    assert not y.reshape(-1, bm, y.shape[1])[pad].any()
+
+
+def test_qmoe_kernels_refuse_what_they_do_not_take(cuda_device):
+    """No plain fallback on the card: f32 rows and a stack of group size 64
+    raise."""
+    rng = np.random.default_rng(8)
+    E, D, F, N, k = 4, 256, 128, 4, 2
+    gu, down = _stacks(rng, E, D, F, 4, cuda_device)
+    top_w, top_i = _routes(rng, N, E, k, cuda_device)
+    with pytest.raises(ValueError):
+        _e2e(_x(rng, N, D, cuda_device).float(), top_w, top_i, gu, down, 8)
+    spec = transformer.ModelSpec(model_type="qwen3_moe", vocab_size=8, hidden_size=D,
+                                 intermediate_size=F, num_layers=1, num_heads=2,
+                                 num_kv_heads=2, head_dim=128, num_experts=E,
+                                 num_experts_per_tok=k, moe_intermediate_size=F)
+    gu64, down64 = _stacks(rng, E, D, F, 4, cuda_device, group_size=64)
+    with pytest.raises(NotImplementedError, match="group size 64"):
+        transformer._moe_ragged_apply_q(spec, {"gateup": gu64, "down": down64},
+                                        _x(rng, N, D, cuda_device), top_w, top_i)
+
+
+def test_moe_facade_runs_k1_and_k10(cuda_device, tmp_path, monkeypatch):
+    """load -> optimize -> generate of a qwen3_moe checkpoint: K1 twice and K10
+    once per layer in the prefill and in every decode step; the logits near
+    the plain versions'."""
+    write_random_qwen3_moe_checkpoint(tmp_path, TINY_QWEN3_MOE, seed=1, device=cuda_device)
+    model = GPTQModel.load(tmp_path).optimize()
+    L, B, T, new = 2, 3, 32, 5
+    ids = np.random.default_rng(2).integers(0, 1024, (B, T))
+    _build.reset_counts()
+    tokens = model.generate(ids, max_new_tokens=new)
+    assert tokens.shape == (B, new) and ((tokens >= 0) & (tokens < 1024)).all()
+    assert _build.LAUNCHES == dict.fromkeys(_build.LAUNCHES, 0) | {
+        "qmatmul": 2 * L * new, "qmoe_e2e": L * new}
+    ids_t = torch.as_tensor(ids, device=cuda_device)
+    with torch.inference_mode():
+        got = transformer.forward_logits(model.spec, model.params, ids_t, torch.bfloat16)
+        monkeypatch.setattr(registry, "qmatmul", qmatmul_plain)
+        monkeypatch.setattr(qmoe, "qmoe_mlp_e2e", qmoe.qmoe_mlp_e2e_plain)
+        ref = transformer.forward_logits(model.spec, model.params, ids_t, torch.bfloat16)
+    assert torch.isfinite(got).all()
+    assert _rel(got, ref) <= 1e-2
