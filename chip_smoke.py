@@ -10,9 +10,11 @@ Phases, each printing JSON lines on stdout:
    what ptxas says of each kernel (registers, shared memory, spills).
 2. ``kernels``: each kernel against its plain PyTorch version on the card,
    at the shapes of Llama-3-8B's main paths: K1 (``qmatmul``) at the qkv, o,
-   gate_up and down projections for M = 1, 8 and 1024, K2 (``qmlp``) at
-   D = 4096, F = 14336 for M = 1, 8 and 64, with the weights rotated through
-   copies that exceed the 50 MB L2; K8 (``gptq_whole_solve``) at the four
+   gate_up and down projections for M = 1, 8 and 1024, K3 (``qmatmul_asym``,
+   random zeros per group and column) at the same projections and sizes at
+   4 bits and at qkv, M = 8 at 2 and 8 bits, twice each for equal bits, K2
+   (``qmlp``) at D = 4096, F = 14336 for M = 1, 8 and 64, with the weights
+   rotated through copies that exceed the 50 MB L2; K8 (``gptq_whole_solve``) at the four
    solve groups (qkv 6144 x 4096, o 4096 x 4096, gate_up 28672 x 4096, down
    4096 x 14336; g = 128, symmetric, 4-bit; Hinv from ``hessian_inverse`` of
    a Hessian of seeded activations), run twice for identical codes, and K9
@@ -20,7 +22,8 @@ Phases, each printing JSON lines on stdout:
    prints the error, the device time of the kernel (torch.profiler), of the
    plain version (the profiler for K1 and K2; CUDA events around one call
    for the solves, whose plain versions launch thousands of small kernels)
-   and of ``torch._weight_int4pack_mm`` (K1's yardstick, where torch has it),
+   and of ``torch._weight_int4pack_mm`` (K1's and 4-bit K3's yardstick, K3's
+   zeros folded into its scales-and-zeros, where torch has it),
    and the bound: the larger of bytes over 3.35 TB/s and operations over
    989 TFLOP/s (bf16, K1 and K2) or 67 TFLOP/s (float32, K8 and K9). Then
    the MoE kernels at Qwen3-30B-A3B's widths (D 2048, F 768, 128 experts,
@@ -41,7 +44,21 @@ Phases, each printing JSON lines on stdout:
    ``torch.profiler`` for the device's busy share.
 4. ``compare``: the first 2 layers of that model at full width, the kernel
    path's logits against the plain versions' on the card, teacher-forced.
-5. ``quantize``: a random bf16 checkpoint at Llama-3-8B's published widths
+5. ``asym-act-slice``: the same widths, all 32 layers, written with
+   ``sym=False, desc_act=True`` (random zeros per group and column, one
+   act-order permutation per layer input), through ``GPTQModel.load(dir)
+   .optimize().generate(ids, 64)`` at B = 8, T = 128, bf16 KV: post-init
+   permutes each module's rows into group order on the card, q/k/v and
+   gate/up fuse with their shared permutation, and every projection runs
+   K3 after one x-column gather. Asserted: 4 K3 per layer in the prefill and
+   in every decode step, no K1 or K2, no synchronizing call in a step.
+   Printed: load s and peak memory, prefill ms, decode ms per step, device
+   ms per step by kernel (the gathers' share too) and the busy share.
+6. ``compare-act``: the kernel path against the plain path over 2 layers,
+   as ``compare``, for that checkpoint (K3) and for a 2-layer one written
+   with ``sym=True, desc_act=True`` (K1 after the gather, no K3): logits
+   within 1e-2.
+7. ``quantize``: a random bf16 checkpoint at Llama-3-8B's published widths
    and 16 of its 32 layers (8 GB) goes through ``GPTQModel.load(dir,
    QuantizeConfig(bits=4, group_size=128, sym=True))``, ``.quantize(ids)``
    on 128 seeded rows of 512 tokens at batch 4, and ``.save(out)``; then
@@ -50,11 +67,15 @@ Phases, each printing JSON lines on stdout:
    K1/K2 counts of a prefill and 15 decode steps. Printed: seconds in all
    and per layer (forward, solve, pack), peak device memory, the losses'
    range and the saved bytes.
-6. ``compare-quantize``: layer 0 of that checkpoint quantized again, once
+8. ``compare-quantize``: layer 0 of that checkpoint quantized again, once
    with K8 swapped for its plain version and once through K9
    (``GPTQ_TPU_SOLVER=pallas``): per module, codes within 2e-3 of the K8
    run and the loss within 1e-3.
-7. ``moe-slice``: a GPTQ v1 checkpoint at Qwen3-30B-A3B's published widths
+9. ``quantize-act``: its first 2 layers through ``QuantizeConfig(sym=False,
+   desc_act=True)`` on K8, ``save``; ``GPTQModel.load`` of the result saved
+   again must give the same bytes; then ``optimize().generate(ids, 8)`` on
+   K3 alone.
+10. ``moe-slice``: a GPTQ v1 checkpoint at Qwen3-30B-A3B's published widths
    and all 48 layers (4-bit, symmetric, group 128, dense router and
    lm_head; random weights drawn on the card from a seed, about 17 GB) is
    written under ``build/``, then ``GPTQModel.load(dir).optimize()
@@ -62,14 +83,14 @@ Phases, each printing JSON lines on stdout:
    and 1 K10 per layer in the prefill and in every decode step, no other
    kernel. Printed: load s and peak memory, device memory, prefill ms,
    decode ms per step, tokens/s and the device's busy share.
-8. ``compare-moe``: its first 2 layers, the kernel path against the plain
+11. ``compare-moe``: its first 2 layers, the kernel path against the plain
    versions, teacher-forced: the plain path is fed the kernel path's tokens
    and follows its routes, experts and weights (the router's bf16 logits
    flip an expert at a near tie, or a weight by an ulp, and move a token's
    logits more than the kernels do); logits within 1e-2, the count of
    (token, layer) routes where the plain path's own router chose other
    experts, and the largest change of its probabilities.
-9. ``moe-routes``: layer 0 stacked again under each ``GPTQ_TPU_QMOE_*``
+12. ``moe-routes``: layer 0 stacked again under each ``GPTQ_TPU_QMOE_*``
    setting and run at N = 8 and 1024 tokens: K10 (rt, the default; ic with
    ``RT=0``), K11, K12, K13 and the dense fallback; each within 2e-2 of the
    default, K10 (ic) within 2e-3 of K11, K11 equal to K12, and the kernel
@@ -77,19 +98,20 @@ Phases, each printing JSON lines on stdout:
    routed rows).
 
 Then the card's name and power limit, the ``{"kernels": [...]}`` line and,
-last, ``{"ok": true, "device":
-{...}}``. Each record of the kernels line names its units: ``launches``
-counts a whole run of the main path (``launches_per``: K1 and K2 the
+last, ``{"ok": true, "device": {...}}``. Each record of the kernels line
+names its units: ``launches`` counts a whole run of the main path
+(``launches_per``: K1 and K2 the generate run, K3 the asym-act-slice
 generate run, K8 the quantize run, K9 the one-layer quantize run through
-``GPTQ_TPU_SOLVER=pallas``, K10 the moe generate run, K11-K13 the moe-routes
-run), and the times are per ``ms_per``: K1 and K2 one decode step at B = 8
-(K1 over qkv and o of every layer, K2 over every layer's MLP), K8 and K9 one
-quantized layer (K8 one solve of each group, K9 each group's 128-column
-blocks), K10 one decode step at B = 8 over the 48 MoE layers, K11-K13 one
-MoE layer at N = 8 tokens (K13 gate|up and down). A failed check raises and exits non-zero. Without a CUDA device it
-exits 1 and prints no result. The records also go to
-``chiprun_out/chip_smoke/chip_smoke.json``. Float32 products run in full
-float32: TF32 is off for matmuls and cuDNN.
+``GPTQ_TPU_SOLVER=pallas``, K10 the moe generate run, K11-K13 the
+moe-routes run), and the times are per ``ms_per``: K1, K2 and K3 one decode
+step at B = 8 (K1 over qkv and o of every layer, K2 over every layer's MLP,
+K3 over qkv, o, gate_up and down of every layer), K8 and K9 one quantized
+layer (K8 one solve of each group, K9 each group's 128-column blocks), K10
+one decode step at B = 8 over the 48 MoE layers, K11-K13 one MoE layer at
+N = 8 tokens (K13 gate|up and down). A failed check raises and exits
+non-zero. Without a CUDA device it exits 1 and prints no result. The
+records also go to ``chiprun_out/chip_smoke/chip_smoke.json``. Float32
+products run in full float32: TF32 is off for matmuls and cuDNN.
 """
 
 from __future__ import annotations
@@ -117,10 +139,14 @@ FP32_FLOPS = 67e12  # non-tensor float32 peak, H100 SXM
 L2_BYTES = 50e6
 B, T, NEW = 8, 128, 64
 K1_MS = (1, 8, 1024)
+# K3 at every projection at K1_MS, 4-bit; 2- and 8-bit at qkv, M = 8
+K3_EXTRA_BITS = {"qkv": (2, 8)}
 K2_MS = (1, 8, 64)
 # K1 and its plain version sum the same exact products in f32 and round once
 # to bf16; K2 also rounds inner to bf16 in both. Only the f32 order differs.
 K1_TOL, K2_TOL = 1e-3, 2e-3
+# K3 as K1: z*s is exact in f32 too
+K3_TOL = K1_TOL
 # logits after 2 layers: one-ulp bf16 flips of the products, carried on
 SLICE_TOL = 1e-2
 # K8 against its plain version: the JAX package's tolerances for its K8
@@ -133,6 +159,9 @@ SOLVE_SHAPES = {"qkv": (6144, 4096), "o": (4096, 4096), "gate_up": (28672, 4096)
 # whole script, the 48-layer MoE slice included, stays near 10 minutes
 QUANT_LAYERS = 16
 Q_ROWS, Q_T, Q_BATCH = 128, 512, 4  # calibration: seeded token ids
+# quantize-act: the quantize phase's checkpoint, its first 2 layers, through
+# QuantizeConfig(sym=False, desc_act=True), then 8 generated tokens on K3
+QUANT_ACT_LAYERS, QUANT_ACT_NEW = 2, 8
 GEN_B, GEN_T, GEN_NEW = 8, 128, 16  # the quantized model's generate
 # K10 at decode B = 1, B = 8 and the prefill of 8 x 128 tokens; K11-K13 at
 # decode B = 8 and at 128 tokens (1024 routed rows, the slot paths' bound)
@@ -195,6 +224,26 @@ def block_bound(out_f: int, B: int = 128) -> tuple[float, str]:
     return bound(4 * (7 * out_f * B + B * B), out_f * B * (B - 1), FP32_FLOPS)
 
 
+def template_args(mangled: str) -> list[str]:
+    """The arguments of a mangled template argument list: integers and bools
+    (``Li4E``, ``Lb1E``) and classes of the kernels' namespace (``NS_11UniformZeroE``,
+    a length and a name, itself perhaps a template)."""
+    out, i = [], 0
+    pat = re.compile(r"L[ib](\d+)E|NS_(\d+)")
+    while i < len(mangled):
+        m = pat.match(mangled, i)
+        if m is None:
+            i += 1
+        elif m.group(1) is not None:
+            out.append(m.group(1))
+            i = m.end()
+        else:
+            n = int(m.group(2))
+            out.append(mangled[m.end():m.end() + n])
+            i = m.end() + n
+    return out
+
+
 def ptxas_summary(lines_by_source: dict) -> dict:
     """``kernel<template args>`` -> registers, smem bytes and spill bytes."""
     out, fn = {}, None
@@ -203,8 +252,7 @@ def ptxas_summary(lines_by_source: dict) -> dict:
             m = re.search(r"Compiling entry function '_ZN3gqt(\d+)(\w+)'", ln)
             if m:  # gqt::<name>, its length first, then I<args>E for a template
                 name, rest = m.group(2)[:int(m.group(1))], m.group(2)[int(m.group(1)):]
-                args = (re.findall(r"L[ib](\d+)E", rest.split("EEv")[0] + "E")
-                        if rest.startswith("I") else [])
+                args = template_args(rest.split("EEv")[0]) if rest.startswith("I") else []
                 fn = f"{name}<{','.join(args)}>" if args else name
                 out[fn] = {}
                 continue
@@ -228,7 +276,9 @@ def plain_versions():
     the registry and the MoE wrappers call, and restores them."""
     from gptqmodel_tpu_torch.ops import qmatmul as k1, qmlp as k2, qmoe, registry
 
-    swaps = [(registry, "qmatmul", k1.qmatmul_plain), (registry, "qmlp", k2.qmlp_plain)] + [
+    swaps = [(registry, "qmatmul", k1.qmatmul_plain),
+             (registry, "qmatmul_asym", k1.qmatmul_asym_plain),
+             (registry, "qmlp", k2.qmlp_plain)] + [
         (qmoe, name, getattr(qmoe, name + "_plain"))
         for name in ("qmoe_mlp_e2e", "qmoe_mlp_matmul_dyn", "qmoe_mlp_matmul", "qmoe_matmul")]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
@@ -540,6 +590,205 @@ def moe_kernel_cases(dev, timed, errors, copies_for) -> list:
     return cases
 
 
+def compare_layers(spec, params, ids, layers: int = 2, steps: int = 8) -> dict:
+    """The first ``layers`` layers of a model at full width: the kernel
+    path's logits over a prefill of ``ids`` and ``steps`` greedy decode
+    steps, against the plain versions' on the card, teacher-forced on the
+    kernel path's tokens. Returns the record and the kernel path's launch
+    counts; asserts that the plain path launches nothing."""
+    import torch
+
+    from gptqmodel_tpu_torch.inference.engine import (
+        init_kv_cache, make_decode_fn, make_prefill_fn,
+    )
+    from gptqmodel_tpu_torch.ops import _build
+
+    dev = torch.device("cuda")
+    spec2 = dataclasses.replace(spec, num_layers=layers)
+    params2 = {**params, "model": {**params["model"],
+                                   "layers": params["model"]["layers"][:layers]}}
+    Bn, Tn = ids.shape
+    ids_t = torch.as_tensor(ids, device=dev)
+    lens = torch.full((Bn,), Tn, dtype=torch.long, device=dev)
+
+    def run(forced=None):
+        caches = init_kv_cache(spec2, Bn, Tn + steps, torch.bfloat16, False, device=dev)
+        with torch.inference_mode():
+            logits, caches, kv = make_prefill_fn(spec2)(params2, ids_t, lens, caches)
+            dec = make_decode_fn(spec2)
+            outs, toks, pos = [logits.float()], [logits.argmax(-1)], lens.clone()
+            for s in range(steps):
+                tok = toks[-1] if forced is None else forced[s]
+                logits, caches, kv = dec(params2, tok, pos, Tn + s, kv, caches)
+                outs.append(logits.float())
+                toks.append(logits.argmax(-1))
+                pos = pos + 1
+        return torch.stack(outs), toks
+
+    _build.reset_counts()
+    got, got_toks = run()
+    counts = dict(_build.LAUNCHES)
+    with plain_versions():
+        ref, ref_toks = run(forced=got_toks)
+    require(dict(_build.LAUNCHES) == counts, "the plain path launched a kernel")
+    require(bool(torch.isfinite(got).all()), f"non-finite logits at {layers} layers")
+    rel = float((got - ref).norm() / ref.norm())
+    agree = float(torch.stack([a == b for a, b in zip(got_toks, ref_toks)]).float().mean())
+    return {"layers": layers, "positions": steps + 1, "kv": "bf16", "logits_rel_err": rel,
+            "logits_tol": SLICE_TOL, "greedy_agreement": agree, "counts": counts}
+
+
+def act_phases(root: Path, card: str) -> dict:
+    """``asym-act-slice`` and ``compare-act``: GPTQ checkpoints at
+    Llama-3-8B's published widths written with ``sym=False, desc_act=True``
+    (all 32 layers) and with ``sym=True, desc_act=True`` (2 layers), random
+    weights drawn on the card from the seed, under ``root``."""
+    import torch
+
+    from gptqmodel_tpu_torch import GPTQModel
+    from gptqmodel_tpu_torch.ops import _build
+    from gptqmodel_tpu_torch.utils.testing import LLAMA3_8B_CONFIG, write_random_gptq_checkpoint
+
+    L = LLAMA3_8B_CONFIG["num_hidden_layers"]
+    none = dict.fromkeys(_build.LAUNCHES, 0)
+    k3 = none | {"qmatmul_asym": 4 * L}  # fused qkv, o, fused gate_up, down
+    ids = np.random.default_rng([SEED, 6]).integers(0, LLAMA3_8B_CONFIG["vocab_size"], (B, T))
+    with tempfile.TemporaryDirectory(prefix="llama3-8b-asym-act-", dir=root) as ckpt:
+        t0 = time.perf_counter()
+        n_bytes = write_random_gptq_checkpoint(ckpt, LLAMA3_8B_CONFIG, seed=SEED, sym=False,
+                                               desc_act=True, device="cuda")
+        write_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = GPTQModel.load(ckpt)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        load_peak = torch.cuda.max_memory_allocated()
+    model.optimize()
+    spec, params = model.spec, model.params
+    lps = params["model"]["layers"]
+    require(model.device.type == "cuda" and len(lps) == L and all(
+        set(lp["self_attn"]) == {"qkv_proj", "o_proj"}
+        and set(lp["mlp"]) == {"gate_up_proj", "down_proj"} for lp in lps),
+        "asym-act-slice: q/k/v or gate/up left unfused, or an MLP marked for K2")
+    require(all(m.act_perm is not None and m.zero_const < 0 for lp in lps
+                for m in (*lp["self_attn"].values(), *lp["mlp"].values())),
+            "asym-act-slice: a module without act_perm, or with one zero point")
+    weights_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    tokens = model.generate(ids, max_new_tokens=NEW)
+    generate_s = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)
+    want = {k: NEW * v for k, v in k3.items()}  # the prefill and NEW - 1 steps
+    require(counts == want, f"asym-act-slice generate launched {counts}, expected {want}")
+    require(tokens.shape == (B, NEW) and ((tokens >= 0) & (tokens < spec.vocab_size)).all(),
+            f"asym-act-slice: tokens {tokens.shape}")
+    timing = serve_timing(spec, params, ids, False, k3, k3)
+    out = {}
+    out["asym_act_slice"] = rec = {
+        "phase": "asym-act-slice", "gpu": card, "layers": L, "B": B, "T": T, "new_tokens": NEW,
+        "kv": "bf16", "options": {"sym": False, "desc_act": True}, "checkpoint_bytes": n_bytes,
+        "write_s": write_s, "load_s": load_s, "load_peak_mem_bytes": load_peak,
+        "weights_mem_bytes": weights_mem, "generate_s": generate_s, "generate_counts": counts,
+        "generate_peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "prefill_counts": k3, "decode_counts_per_step": k3,
+        "distinct_tokens_first_row": len(set(tokens[0].tolist())),
+        "tokens_first_row": tokens[0].tolist(), **timing}
+    emit(rec)
+
+    cmp = {"asym": compare_layers(spec, params, ids)}
+    del model, params, lps
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="llama3-8b-sym-act-", dir=root) as ckpt:
+        write_random_gptq_checkpoint(ckpt, dict(LLAMA3_8B_CONFIG, num_hidden_layers=2),
+                                     seed=SEED + 1, sym=True, desc_act=True, device="cuda")
+        model = GPTQModel.load(ckpt).optimize()
+    require(all(m.act_perm is not None and m.zero_const >= 0
+                for lp in model.params["model"]["layers"]
+                for m in (*lp["self_attn"].values(), *lp["mlp"].values())),
+            "compare-act: a symmetric module without act_perm")
+    cmp["sym"] = compare_layers(model.spec, model.params, ids)
+    del model
+    torch.cuda.empty_cache()
+    out["compare_act"] = rec = {"phase": "compare-act", "gpu": card, **cmp}
+    emit(rec)
+    per_run = 4 * 2 * cmp["asym"]["positions"]  # 4 per layer, prefill and each step
+    require(cmp["asym"]["counts"] == none | {"qmatmul_asym": per_run},
+            f"compare-act asym launched {cmp['asym']['counts']}")
+    require(cmp["sym"]["counts"] == none | {"qmatmul": per_run},
+            f"compare-act sym launched {cmp['sym']['counts']}: expected K1 alone")
+    for name, c in cmp.items():
+        require(c["logits_rel_err"] <= SLICE_TOL,
+                f"compare-act {name}: rel {c['logits_rel_err']} > {SLICE_TOL}")
+    return out
+
+
+def quantize_act_phase(root: Path, state: dict, card: str) -> dict:
+    """The quantize phase's checkpoint, its first ``QUANT_ACT_LAYERS`` layers,
+    through ``GPTQModel.load(dir, QuantizeConfig(sym=False, desc_act=True))``,
+    ``.quantize(ids)`` on K8 and ``.save(out)``; then ``GPTQModel.load(out)``
+    (its rows permuted into group order at post-init) is saved again, which
+    must give the first save's bytes, and ``.optimize().generate(ids, 8)``
+    runs every projection on K3."""
+    import torch
+
+    from gptqmodel_tpu_torch import GPTQModel, QuantizeConfig
+    from gptqmodel_tpu_torch.ops import _build
+
+    layers, new = QUANT_ACT_LAYERS, QUANT_ACT_NEW
+    fp = root / f"fp-{layers}-layers"
+    fp.mkdir()
+    for f in state["fp_dir"].iterdir():  # the same shards, a config of fewer layers
+        if f.name != "config.json":
+            (fp / f.name).symlink_to(f)
+    cfg = json.loads((state["fp_dir"] / "config.json").read_text())
+    (fp / "config.json").write_text(json.dumps(dict(cfg, num_hidden_layers=layers)))
+    none = dict.fromkeys(_build.LAUNCHES, 0)
+    model = GPTQModel.load(fp, QuantizeConfig(bits=4, group_size=128, sym=False,
+                                              desc_act=True))
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    qlog = model.quantize(state["ids"], batch_size=Q_BATCH)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)
+    require(counts == none | {"gptq_whole_solve": 4 * layers}, f"quantize-act launched {counts}")
+    require(not any(r["fallback"] for r in qlog) and all(math.isfinite(r["loss"]) for r in qlog),
+            "quantize-act: a fallback or a non-finite loss")
+    first, again = root / "act-quantized", root / "act-saved-again"
+    model.save(first)
+    del model
+    torch.cuda.empty_cache()
+    served = GPTQModel.load(first)
+    require(all(m.act_perm is not None for lp in served.params["model"]["layers"]
+                for k in ("self_attn", "mlp") for m in lp[k].values()),
+            "quantize-act: a module loaded without act_perm")
+    served.save(again)
+    served.optimize()
+    _build.reset_counts()
+    tokens = served.generate(state["ids"][:GEN_B, :GEN_T], max_new_tokens=new)
+    gen_counts = dict(_build.LAUNCHES)
+    require(gen_counts == none | {"qmatmul_asym": 4 * layers * new},
+            f"quantize-act generate launched {gen_counts}")
+    require(tokens.shape == (GEN_B, new), f"tokens of shape {tokens.shape}")
+    del served
+    torch.cuda.empty_cache()
+    files = sorted(f.name for f in first.glob("model*.safetensors*"))
+    equal = files == sorted(f.name for f in again.glob("model*.safetensors*")) and all(
+        (first / f).read_bytes() == (again / f).read_bytes() for f in files)
+    rec = {"phase": "quantize-act", "gpu": card, "layers": layers, "sym": False,
+           "desc_act": True, "quantize_s": quantize_s, "quantize_counts": counts,
+           "loss_min": min(r["loss"] for r in qlog), "loss_max": max(r["loss"] for r in qlog),
+           "generate_counts": gen_counts, "tokens_first_row": tokens[0].tolist(),
+           "saved_files": files, "resave_byte_equal": equal}
+    emit(rec)
+    require(equal, "quantize-act: the save after load differs from the first save")
+    return rec
+
+
 def count_dense_fallback():
     """Count the dense fallback's calls: it launches no kernel of the port,
     so the MoE routes read this counter beside ``_build.LAUNCHES``. The
@@ -563,7 +812,7 @@ def count_dense_fallback():
     return ctx()
 
 
-def moe_phases(root: Path, card: str, device_ms) -> dict:
+def moe_phases(root: Path, card: str) -> dict:
     """``moe-slice``, ``compare-moe`` and ``moe-routes`` on a GPTQ
     Qwen3-30B-A3B-wide checkpoint (all 48 layers, random weights from the
     seed, drawn on the card) written under ``root``."""
@@ -625,7 +874,7 @@ def moe_phases(root: Path, card: str, device_ms) -> dict:
     require(counts == want, f"moe generate launched {counts}, expected {want}")
     require(tokens.shape == (B, NEW) and ((tokens >= 0) & (tokens < V)).all(),
             f"tokens {tokens.shape}")
-    timing = serve_timing(spec, params, ids, False, counts_per, counts_per, device_ms)
+    timing = serve_timing(spec, params, ids, False, counts_per, counts_per)
     out["moe_slice"] = rec = {
         "phase": "moe-slice", "gpu": card, "layers": L, "B": B, "T": T, "new_tokens": NEW,
         "kv": "bf16", "checkpoint_bytes": n_bytes, "write_s": write_s, "load_s": load_s,
@@ -748,8 +997,8 @@ def moe_phases(root: Path, card: str, device_ms) -> dict:
 
 
 
-def serve_timing(spec, params, ids, kv_quant, prefill_counts: dict, step_counts: dict,
-                 device_ms) -> dict:
+def serve_timing(spec, params, ids, kv_quant, prefill_counts: dict,
+                 step_counts: dict) -> dict:
     """The served path through the engine, timed: one prefill (host clock
     with a synchronize), 40 decode steps after 2 of warm-up (CUDA events, and
     the host clock for the enqueue), then 4 steps under torch.profiler for
@@ -823,8 +1072,158 @@ def serve_timing(spec, params, ids, kv_quant, prefill_counts: dict, step_counts:
         # device kernel time per step under the profiler, over the step timed
         # without it
         "device_ms_per_step": step_dev_ms, "device_busy_share": step_dev_ms / decode_ms,
+        # the act-order x-column gathers: torch.index_select's kernels
+        "device_ms_per_step_gather": sum(ms for k, ms in by_kernel
+                                         if "scatter_gather" in k or "indexSelect" in k),
         "device_ms_per_step_by_kernel": [[k[:90], ms] for k, ms in by_kernel[:12]],
     }
+
+
+def device_ms(run, per: int, activities=None) -> tuple[float, list]:
+    """Kernel time on the device per ``per`` calls made by ``run()``
+    under torch.profiler (CUDA activity unless ``activities`` says more), in
+    all and by kernel name. Now and then CUPTI hands a session no kernel
+    record (once in sixteen runs of this script on an H100): such a session
+    is run again, up to three times in all, and never replaced by another
+    clock."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=list(activities or (ProfilerActivity.CUDA,))) as prof:
+            run()
+            torch.cuda.synchronize()
+        rows = [(e.key, e.self_device_time_total / 1e3 / per) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        if rows:
+            rows.sort(key=lambda kv: -kv[1])
+            return sum(ms for _, ms in rows), rows
+    raise CheckFailed("torch.profiler recorded no kernel on the device in three sessions")
+
+
+def timed(fn, n_copies: int, budget_ms: float = 150.0) -> dict:
+    """Device time per call (``ms``: torch.profiler, kernels only) and
+    wall time per call (``wall_ms``: CUDA events around the loop, host
+    launch gaps included)."""
+    import torch
+
+    fn(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(1 % n_copies)
+    torch.cuda.synchronize()
+    est_ms = (time.perf_counter() - t0) * 1e3
+    iters = max(3, min(100, int(budget_ms / max(est_ms, 1e-3))))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def loop():
+        start.record()
+        for i in range(iters):
+            fn(i % n_copies)
+        end.record()
+
+    ms = device_ms(loop, iters)[0]
+    return {"ms": ms, "wall_ms": start.elapsed_time(end) / iters}
+
+def errors(y, ref) -> tuple[float, float]:
+    """Relative error in norm and largest absolute error."""
+    d = y.float() - ref.float()
+    return float(d.norm() / ref.float().norm()), float(d.abs().max())
+
+def int4pack_library() -> tuple[bool, str]:
+    """Whether this torch has the int4 yardstick, and its name in the records."""
+    import torch
+
+    has = all(hasattr(torch, f) for f in ("_weight_int4pack_mm", "_convert_weight_to_int4pack"))
+    return has, ("torch._weight_int4pack_mm on a torch._convert_weight_to_int4pack copy"
+                 if has else "null: this torch has no _weight_int4pack_mm")
+
+def int4pack(qweight, scales, zc):
+    """tinygemm's copy of 4-bit weights, w = (q - 8) * s + z: with the zero
+    point ``zc`` (a number, or K3's [G, N] zeros), z = (8 - zc) * s."""
+    import torch
+
+    from gptqmodel_tpu_torch.ops.pack import unpack_qweight
+
+    codes = unpack_qweight(qweight, 4).t().contiguous()  # [N, K]
+    w_u8 = ((codes[:, ::2] << 4) | codes[:, 1::2]).to(torch.uint8)
+    s = scales.float()
+    return (torch._convert_weight_to_int4pack(w_u8, 8),
+            torch.stack([s, (8.0 - zc) * s], dim=2).to(torch.bfloat16))
+
+def copies_for(n_bytes: int) -> int:
+    """Weight copies to rotate through so that a call finds its weights
+    out of the L2: together at least three times its size."""
+    return max(3, math.ceil(3 * L2_BYTES / n_bytes))
+
+
+def k3_kernel_cases(dev, rng, shapes: dict) -> list:
+    """K3 against its plain version at Llama-3-8B's projections (``shapes``:
+    proj -> K, N), 4-bit at K1_MS and 2- and 8-bit at the sizes
+    ``K3_EXTRA_BITS`` names, group 128, random per-group zeros; two runs each
+    for equal bits, the weights rotated through copies past the L2, and
+    ``torch._weight_int4pack_mm`` with the zeros folded into its
+    scales-and-zeros as the yardstick at 4 bits."""
+    import torch
+
+    from gptqmodel_tpu_torch.ops import _build
+    from gptqmodel_tpu_torch.ops.pack import unpack_qzeros
+    from gptqmodel_tpu_torch.ops.qmatmul import qmatmul_asym, qmatmul_asym_plain
+    from gptqmodel_tpu_torch.ops.registry import post_init_module
+    from gptqmodel_tpu_torch.utils.testing import random_quant_linear
+
+    has_int4pack, library = int4pack_library()
+    cases = []
+    for proj, (K, N) in shapes.items():
+        for bits in (4, *K3_EXTRA_BITS.get(proj, ())):
+            base = post_init_module(random_quant_linear(rng, K, N, bits, device=dev, sym=False))
+            require(base.zero_const < 0, "K3 case with one zero point")
+            wbytes = base.qweight.nbytes + base.scales.nbytes + base.qzeros.nbytes
+            mods = [base] + [dataclasses.replace(base, qweight=base.qweight.clone(),
+                                                 scales=base.scales.clone(),
+                                                 qzeros=base.qzeros.clone())
+                             for _ in range(copies_for(wbytes) - 1)]
+            lib_w = ([int4pack(m.qweight, m.scales, unpack_qzeros(m.qzeros, 4).float())
+                      for m in mods] if has_int4pack and bits == 4 else None)
+            for M in (K1_MS if bits == 4 else (B,)):
+                x = torch.from_numpy(rng.standard_normal((M, K), dtype=np.float32)).to(
+                    dev).to(torch.bfloat16)
+                kw = dict(bits=bits, group_size=128)
+                ops = lambda i: (x, mods[i].qweight, mods[i].scales, mods[i].qzeros)
+                before = _build.LAUNCHES["qmatmul_asym"]
+                y, y2 = qmatmul_asym(*ops(0), **kw), qmatmul_asym(*ops(0), **kw)
+                ref = qmatmul_asym_plain(*ops(0), **kw)
+                torch.cuda.synchronize()
+                require(_build.LAUNCHES["qmatmul_asym"] == before + 2, "K3 did not launch")
+                identical = torch.equal(y, y2)
+                rel, mx = errors(y, ref)
+                k = timed(lambda i: qmatmul_asym(*ops(i), **kw), len(mods))
+                pl_ = timed(lambda i: qmatmul_asym_plain(*ops(i), **kw), len(mods),
+                            budget_ms=100.0)
+                lib, lib_rel = None, None
+                if lib_w is not None:
+                    lib = timed(lambda i: torch._weight_int4pack_mm(x, lib_w[i][0], 128,
+                                                                    lib_w[i][1]), len(mods))
+                    lib_rel = errors(torch._weight_int4pack_mm(x, lib_w[0][0], 128,
+                                                               lib_w[0][1]), ref)[0]
+                b_ms, b_by = bound(x.nbytes + wbytes + y.nbytes, 2.0 * M * N * K)
+                case = {"kernel": "qmatmul_asym", "proj": proj, "bits": bits, "M": M, "K": K,
+                        "N": N, "rel_err": rel, "max_abs_err": mx, "identical_runs": identical,
+                        "ms": k["ms"], "wall_ms": k["wall_ms"], "plain_ms": pl_["ms"],
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": lib["ms"] if lib else None,
+                        "library": (library if bits == 4 else
+                                    "null: torch._weight_int4pack_mm takes 4-bit weights"),
+                        "library_rel_err": lib_rel, "plain_wall_ms": pl_["wall_ms"],
+                        "library_wall_ms": lib["wall_ms"] if lib else None,
+                        "weight_copies": len(mods)}
+                cases.append(case)
+                emit({"phase": "kernels", **case})
+                require(rel <= K3_TOL, f"K3 {proj} {bits}-bit M={M}: rel {rel} > {K3_TOL}")
+                require(identical, f"K3 {proj} {bits}-bit M={M}: two runs differ")
+            del base, mods, lib_w
+    return cases
 
 
 def main() -> int:
@@ -835,17 +1234,10 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from gptqmodel_tpu_torch import GPTQModel
     from gptqmodel_tpu_torch.device import gpu_info
-    from gptqmodel_tpu_torch.inference.engine import (
-        init_kv_cache, make_decode_fn, make_prefill_fn,
-    )
     from gptqmodel_tpu_torch.models.optimize import _concat_quant
     from gptqmodel_tpu_torch.ops import _build
-    from gptqmodel_tpu_torch.ops.pack import unpack_qweight
     from gptqmodel_tpu_torch.ops.qmatmul import qmatmul, qmatmul_plain
     from gptqmodel_tpu_torch.ops.qmlp import qmlp, qmlp_plain
     from gptqmodel_tpu_torch.ops.gptq_solve import (
@@ -878,67 +1270,7 @@ def main() -> int:
     record["build"] = build_rec
 
     # -------------------------------------------------------------- kernels
-    def device_ms(run, per: int, activities=(ProfilerActivity.CUDA,)) -> tuple[float, list]:
-        """Kernel time on the device per ``per`` calls made by ``run()``
-        under torch.profiler, in all and by kernel name. Now and then CUPTI
-        hands a session no kernel record (once in sixteen runs of this script
-        on an H100): such a session is run again, up to three times in all, and
-        never replaced by another clock."""
-        for _ in range(3):
-            with profile(activities=list(activities)) as prof:
-                run()
-                torch.cuda.synchronize()
-            rows = [(e.key, e.self_device_time_total / 1e3 / per) for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-            if rows:
-                rows.sort(key=lambda kv: -kv[1])
-                return sum(ms for _, ms in rows), rows
-        raise CheckFailed("torch.profiler recorded no kernel on the device in three sessions")
-
-    def timed(fn, n_copies: int, budget_ms: float = 150.0) -> dict:
-        """Device time per call (``ms``: torch.profiler, kernels only) and
-        wall time per call (``wall_ms``: CUDA events around the loop, host
-        launch gaps included)."""
-        fn(0)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn(1 % n_copies)
-        torch.cuda.synchronize()
-        est_ms = (time.perf_counter() - t0) * 1e3
-        iters = max(3, min(100, int(budget_ms / max(est_ms, 1e-3))))
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-
-        def loop():
-            start.record()
-            for i in range(iters):
-                fn(i % n_copies)
-            end.record()
-
-        ms = device_ms(loop, iters)[0]
-        return {"ms": ms, "wall_ms": start.elapsed_time(end) / iters}
-
-    def errors(y, ref) -> tuple[float, float]:
-        d = y.float() - ref.float()
-        return float(d.norm() / ref.float().norm()), float(d.abs().max())
-
-    has_int4pack = all(hasattr(torch, f) for f in
-                       ("_weight_int4pack_mm", "_convert_weight_to_int4pack"))
-    library = ("torch._weight_int4pack_mm on a torch._convert_weight_to_int4pack copy"
-               if has_int4pack else "null: this torch has no _weight_int4pack_mm")
-
-    def int4pack(qweight, scales, zc):
-        """tinygemm's copy of 4-bit weights: w = (q - 8) * s + z."""
-        codes = unpack_qweight(qweight, 4).t().contiguous()  # [N, K]
-        w_u8 = ((codes[:, ::2] << 4) | codes[:, 1::2]).to(torch.uint8)
-        s = scales.float()
-        return (torch._convert_weight_to_int4pack(w_u8, 8),
-                torch.stack([s, (8.0 - zc) * s], dim=2).to(torch.bfloat16))
-
-    def copies_for(n_bytes: int) -> int:
-        """Weight copies to rotate through so that a call finds its weights
-        out of the L2: together at least three times its size."""
-        return max(3, math.ceil(3 * L2_BYTES / n_bytes))
-
+    has_int4pack, library = int4pack_library()
     rng = np.random.default_rng([SEED, 100])
     D, F = LLAMA3_8B_CONFIG["hidden_size"], LLAMA3_8B_CONFIG["intermediate_size"]
     hd = D // LLAMA3_8B_CONFIG["num_attention_heads"]
@@ -985,6 +1317,8 @@ def main() -> int:
             emit({"phase": "kernels", **case})
             require(rel <= K1_TOL, f"K1 {proj} M={M}: rel {rel} > {K1_TOL}")
         del base, mods, lib_w
+
+    cases += k3_kernel_cases(dev, rng, k1_shapes)
 
     gate, up = (post_init_module(random_quant_linear(rng, D, F, 4, device=dev))
                 for _ in range(2))
@@ -1139,8 +1473,7 @@ def main() -> int:
         want = {k: prefill_counts[k] + (NEW - 1) * step_counts[k] for k in step_counts}
         require(counts == want, f"generate launched {counts}, expected {want}")
 
-        timing = serve_timing(spec, params, ids, kv_quant, prefill_counts, step_counts,
-                              device_ms)
+        timing = serve_timing(spec, params, ids, kv_quant, prefill_counts, step_counts)
         rec = {
             "phase": "slice", "gpu": card, "kv": kv, "layers": L, "B": B, "T": T,
             "new_tokens": NEW, "checkpoint_bytes": n_bytes, "write_s": write_s,
@@ -1154,42 +1487,19 @@ def main() -> int:
     record["slice"] = slice_recs
 
     # -------------------------------------------------------------- compare
-    spec2 = dataclasses.replace(spec, num_layers=2)
-    params2 = {**params, "model": {**params["model"], "layers": layers[:2]}}
-    ids_t = torch.as_tensor(ids, device=dev)
-    lens = torch.full((B,), T, dtype=torch.long, device=dev)
-
-    def run(steps: int, forced=None):
-        caches = init_kv_cache(spec2, B, T + steps, torch.bfloat16, False, device=dev)
-        with torch.inference_mode():
-            logits, caches, kv = make_prefill_fn(spec2)(params2, ids_t, lens, caches)
-            dec = make_decode_fn(spec2)
-            outs, toks, pos = [logits.float()], [logits.argmax(-1)], lens.clone()
-            for s in range(steps):
-                tok = toks[-1] if forced is None else forced[s]
-                logits, caches, kv = dec(params2, tok, pos, T + s, kv, caches)
-                outs.append(logits.float())
-                toks.append(logits.argmax(-1))
-                pos = pos + 1
-        return torch.stack(outs), toks
-
-    _build.reset_counts()
-    got, got_toks = run(8)
-    kernel_counts = dict(_build.LAUNCHES)
-    with plain_versions():
-        ref, ref_toks = run(8, forced=got_toks)
-    require(dict(_build.LAUNCHES) == kernel_counts, "the plain path launched a kernel")
-    require(kernel_counts["qmatmul"] > 0 and kernel_counts["qmlp"] > 0, kernel_counts)
-    rel = float((got - ref).norm() / ref.norm())
-    agree = float(torch.stack([a == b for a, b in zip(got_toks, ref_toks)]).float().mean())
-    cmp_rec = {"phase": "compare", "gpu": card, "layers": 2, "positions": 9, "kv": "bf16",
-               "logits_rel_err": rel, "logits_tol": SLICE_TOL, "greedy_agreement": agree}
+    cmp_rec = {"phase": "compare", "gpu": card, **compare_layers(spec, params, ids)}
     emit(cmp_rec)
     record["compare"] = cmp_rec
-    require(bool(torch.isfinite(got).all()), "non-finite logits at 2 layers")
-    require(rel <= SLICE_TOL, f"kernel path vs plain path: rel {rel} > {SLICE_TOL}")
-    del model, params, layers, params2, got, ref
+    kernel_counts = cmp_rec["counts"]
+    require(kernel_counts["qmatmul"] > 0 and kernel_counts["qmlp"] > 0, kernel_counts)
+    require(cmp_rec["logits_rel_err"] <= SLICE_TOL,
+            f"kernel path vs plain path: rel {cmp_rec['logits_rel_err']} > {SLICE_TOL}")
+    del model, params, layers
     torch.cuda.empty_cache()
+
+    # ------------------------------------------- asym-act-slice, compare-act
+    act = act_phases(ROOT / "build", card)
+    record.update(act)
 
     # ------------------------------------------- quantize, compare-quantize
     with tempfile.TemporaryDirectory(prefix="llama3-8b-fp-", dir=ROOT / "build") as work:
@@ -1199,11 +1509,12 @@ def main() -> int:
         cq_rec = compare_quantize_phase(Path(work), state, card)
         emit(cq_rec)
         record["compare_quantize"] = cq_rec
+        record["quantize_act"] = quantize_act_phase(Path(work), state, card)
 
     # ------------------------------------- moe-slice, compare-moe, moe-routes
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="qwen3-30b-a3b-gptq-", dir=ROOT / "build") as ckpt:
-        moe = moe_phases(Path(ckpt), card, device_ms)
+        moe = moe_phases(Path(ckpt), card)
     record.update(moe)
 
     # -------------------------------------------------------------- summary
@@ -1211,7 +1522,8 @@ def main() -> int:
 
     def per_step(kernel: str, parts: list[tuple[str, int]]) -> dict:
         sel = [(c, n) for c in cases for proj, n in parts
-               if c["kernel"] == kernel and c["M"] == B and c["proj"] == proj]
+               if c["kernel"] == kernel and c["M"] == B and c["proj"] == proj
+               and c.get("bits", 4) == 4]
         total = lambda key: sum(c[key] * n for c, n in sel)
         return {"ms": total("ms"), "plain_ms": total("plain_ms"),
                 "bound_ms": total("bound_ms"),
@@ -1238,6 +1550,13 @@ def main() -> int:
          "ms_per": "decode step",
          "max_abs_err": max(c["max_abs_err"] for c in cases if c["kernel"] == "qmatmul"),
          **per_step("qmatmul", [("qkv", L), ("o", L)])},
+        {"name": "qmatmul_asym (K3)", "route": "cuda",
+         "source": "gptqmodel_tpu_torch/csrc/qmatmul.cu",
+         "replaces": "gptqmodel_tpu/ops/pallas_qmatmul.py:117",
+         "launches": act["asym_act_slice"]["generate_counts"]["qmatmul_asym"],
+         "launches_per": "asym-act-slice generate run", "ms_per": "decode step",
+         "max_abs_err": max(c["max_abs_err"] for c in cases if c["kernel"] == "qmatmul_asym"),
+         **per_step("qmatmul_asym", [("qkv", L), ("o", L), ("gate_up", L), ("down", L)])},
         {"name": "qmlp (K2)", "route": "cuda",
          "source": "gptqmodel_tpu_torch/csrc/qmlp.cu",
          "replaces": "gptqmodel_tpu/ops/pallas_qmlp.py:84",

@@ -1,9 +1,16 @@
-// K1: symmetric 2/4/8-bit dequant-matmul, y[M,N] = x[M,K] @ dequant(qweight).
+// K1 and K3: 2/4/8-bit dequant-matmul, y[M,N] = x[M,K] @ dequant(qweight).
 //
-// Replaces the TPU kernel gptqmodel_tpu/ops/pallas_qmatmul.py
+// K1 replaces the TPU kernel gptqmodel_tpu/ops/pallas_qmatmul.py
 // _qmm_rt_sym_kernel (reached through qmatmul(rt=True, zero_const>=0)):
-// contiguous groups, one uniform zero point, per-group partial dots in f32,
-// one rounding to bf16 at the end. The arithmetic is in qmm_common.cuh.
+// contiguous groups, one uniform zero point. K3 replaces _qmm_rt_kernel
+// (:117, reached with rt=True, zero_const<0): a zero point per group and
+// column, which it reads from the module's v2 qzeros words as they are
+// ([G, N*bits/32] int32, no unpacked copy), one word per group and column
+// pair, beside the scales. Both compute per-group partial dots in f32 and
+// round once to bf16 at the end; the arithmetic is in qmm_common.cuh, and K3
+// is the same tile with another zero-point source (GroupZeros), so K1's
+// instantiations do not change. Act-order modules reach both after the
+// caller's x-column gather (ops/registry.py).
 //
 // What bounds it on an H100 (3.35 TB/s, 989 TFLOP/s bf16): at decode
 // (M <= 16) the packed weights, bits/8 bytes each, read once; at prefill
@@ -23,9 +30,15 @@
 //   one column tile are neighbours in launch order and meet the weights in L2.
 //   It does not use wgmma or TMA: it is not expected to reach the
 //   tensor-core bound.
+// - K3 adds G*N*bits/8 bytes of zeros to K1's weights and scales (1/128 of
+//   the weight bytes at g = 128), and one word load and two field extracts
+//   per group and column pair.
 // Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W, 4-bit:
-// qkv (4096 x 6144) at M = 8 takes 0.019 ms against a 0.0039 ms byte bound,
-// at M = 1024 0.38 ms against a 0.052 ms operation bound.
+// K1 on qkv (4096 x 6144) at M = 8 takes 0.019 ms against a 0.0039 ms byte
+// bound, at M = 1024 0.38 ms against a 0.052 ms operation bound; K3 0.021 ms
+// and 0.54 ms. ptxas gives K3's 32 x 32 tile 182 registers to K1's 168, so
+// 2 blocks fit an SM where K1 has 3: the likely cause of K3's 40-66% over K1
+// at M = 1024, the first target of a later performance change.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -36,42 +49,64 @@
 
 namespace gqt {
 
-template <int BITS, int MT, int NT>
+template <int BITS, int MT, int NT, class Z>
 void launch_qmatmul(const void* x, int M, int K, const void* qw, const void* sc, int N,
-                    int g, float zc, void* out, cudaStream_t stream) {
+                    int g, Z zero, void* out, cudaStream_t stream) {
   const dim3 grid((M + 16 * MT - 1) / (16 * MT), N / (8 * NT));
-  qmatmul_kernel<BITS, MT, NT><<<grid, kThreads, 0, stream>>>(
+  qmatmul_kernel<BITS, MT, NT, Z><<<grid, kThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(x), M, K, static_cast<const uint32_t*>(qw),
-      static_cast<const __half*>(sc), N, g, zc, static_cast<__nv_bfloat16*>(out));
+      static_cast<const __half*>(sc), N, g, zero, static_cast<__nv_bfloat16*>(out));
 }
 
 // Tile by M: decode (M <= 16) one row tile and 8 columns a block; up to 64
 // rows four row tiles; beyond, 32 x 32 tiles when N allows.
-template <int BITS>
+template <int BITS, class Z>
 void dispatch_qmatmul(const void* x, int M, int K, const void* qw, const void* sc, int N,
-                      int g, float zc, void* out, cudaStream_t stream) {
+                      int g, Z zero, void* out, cudaStream_t stream) {
   if (M <= 16)
-    launch_qmatmul<BITS, 1, 1>(x, M, K, qw, sc, N, g, zc, out, stream);
+    launch_qmatmul<BITS, 1, 1, Z>(x, M, K, qw, sc, N, g, zero, out, stream);
   else if (M <= 64 || N % 32 != 0)
-    launch_qmatmul<BITS, 4, 1>(x, M, K, qw, sc, N, g, zc, out, stream);
+    launch_qmatmul<BITS, 4, 1, Z>(x, M, K, qw, sc, N, g, zero, out, stream);
   else
-    launch_qmatmul<BITS, 2, 4>(x, M, K, qw, sc, N, g, zc, out, stream);
+    launch_qmatmul<BITS, 2, 4, Z>(x, M, K, qw, sc, N, g, zero, out, stream);
+}
+
+template <int BITS>
+void dispatch_asym(const void* x, int M, int K, const void* qw, const void* sc,
+                   const void* qz, int N, int g, void* out, cudaStream_t stream) {
+  const GroupZeros<BITS> zero{static_cast<const uint32_t*>(qz), N * BITS / 32};
+  dispatch_qmatmul<BITS, GroupZeros<BITS>>(x, M, K, qw, sc, N, g, zero, out, stream);
 }
 
 }  // namespace gqt
 
-// Returns 0, -1 for unsupported bits, or the CUDA error of the launch. The
-// caller checks the contract: bf16 x [M, K] (16-byte aligned rows), int32
-// qweight [K*bits/32, N], fp16 scales [K/g, N], g % 128 == 0, K % g == 0,
-// N % 8 == 0; and allocates out [M, N] bf16.
+// The entry points return 0, -1 for unsupported bits, or the CUDA error of
+// the launch. The caller checks the contract: bf16 x [M, K] (16-byte aligned
+// rows), int32 qweight [K*bits/32, N], fp16 scales [K/g, N], g % 128 == 0,
+// K % g == 0, N % 8 == 0 (K3 also int32 v2 qzeros [K/g, N*bits/32]); and
+// allocates out [M, N] bf16.
 extern "C" int gqt_qmatmul(const void* x, int M, int K, const void* qweight,
                            const void* scales, int N, int group_size, float zero_const,
                            int bits, void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const gqt::UniformZero z{zero_const};
   switch (bits) {
-    case 2: gqt::dispatch_qmatmul<2>(x, M, K, qweight, scales, N, group_size, zero_const, out, s); break;
-    case 4: gqt::dispatch_qmatmul<4>(x, M, K, qweight, scales, N, group_size, zero_const, out, s); break;
-    case 8: gqt::dispatch_qmatmul<8>(x, M, K, qweight, scales, N, group_size, zero_const, out, s); break;
+    case 2: gqt::dispatch_qmatmul<2>(x, M, K, qweight, scales, N, group_size, z, out, s); break;
+    case 4: gqt::dispatch_qmatmul<4>(x, M, K, qweight, scales, N, group_size, z, out, s); break;
+    case 8: gqt::dispatch_qmatmul<8>(x, M, K, qweight, scales, N, group_size, z, out, s); break;
+    default: return -1;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gqt_qmatmul_asym(const void* x, int M, int K, const void* qweight,
+                                const void* scales, const void* qzeros, int N, int group_size,
+                                int bits, void* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (bits) {
+    case 2: gqt::dispatch_asym<2>(x, M, K, qweight, scales, qzeros, N, group_size, out, s); break;
+    case 4: gqt::dispatch_asym<4>(x, M, K, qweight, scales, qzeros, N, group_size, out, s); break;
+    case 8: gqt::dispatch_asym<8>(x, M, K, qweight, scales, qzeros, N, group_size, out, s); break;
     default: return -1;
   }
   return (int)cudaGetLastError();

@@ -45,7 +45,8 @@ __global__ void __launch_bounds__(kThreads)
   const int k_begin = (warp * G / kWarps) * g, k_end = ((warp + 1) * G / kWarps) * g;
 
   float acc[MT][2][4];
-  warp_tile<BITS, MT, 2>(x, D, M, m0, qw, sc, 2 * F, cols, g, k_begin, k_end, zc, acc);
+  warp_tile<BITS, MT, 2, UniformZero>(x, D, M, m0, qw, sc, 2 * F, cols, g, k_begin, k_end,
+                                      UniformZero{zc}, acc);
   block_reduce<MT, 2>(red, acc);
   if (warp != 0) return;
   const int t = lane & 3, gid = lane >> 2;
@@ -71,9 +72,10 @@ void launch_qmlp(const void* x, int M, int D, int F, const void* qw_gu, const vo
   qmlp_gate_up_kernel<BITS, MT><<<dim3(mb, F / 8), kThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(x), M, D, F, static_cast<const uint32_t*>(qw_gu),
       static_cast<const __half*>(s_gu), g, zc_gu, static_cast<__nv_bfloat16*>(inner));
-  qmatmul_kernel<BITS, MT, 1><<<dim3(mb, D / 8), kThreads, 0, stream>>>(
+  qmatmul_kernel<BITS, MT, 1, UniformZero><<<dim3(mb, D / 8), kThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(inner), M, F, static_cast<const uint32_t*>(qw_d),
-      static_cast<const __half*>(s_d), D, g, zc_d, static_cast<__nv_bfloat16*>(out));
+      static_cast<const __half*>(s_d), D, g, UniformZero{zc_d},
+      static_cast<__nv_bfloat16*>(out));
 }
 
 template <int BITS>

@@ -16,14 +16,16 @@
 // (x) is gathered with the same mapping from one 2*PF-byte load per row, so
 // each mma is an exact dot over 16 logical K-rows whatever their order.
 //
-// Arithmetic, per group g of group_size K-rows (contiguous groups, one
-// uniform zero point zc, as in the TPU kernel _qmm_rt_sym_kernel):
+// Arithmetic, per group g of group_size K-rows (contiguous groups):
 //   P_g  = x_g . codes_g          bf16 x bf16 products, f32 sums
 //   X1_g = sum(x_g)               f32
-//   acc += P_g * s_g - X1_g * (zc * s_g)      s_g the fp16 scale, exactly in f32
-// The scales are used as stored (fp16), not rounded to bf16 as the TPU kernel
-// does; the plain version (ops/qmatmul.py qmatmul_plain) computes the same
-// sums in another order.
+//   acc += P_g * s_g - X1_g * (z_g * s_g)     s_g the fp16 scale, exactly in f32
+// with z_g one uniform zero point zc (K1, as the TPU kernel
+// _qmm_rt_sym_kernel) or the zero point of the group and column read from the
+// packed v2 qzeros words (K3, as _qmm_rt_kernel); z_g * s_g is exact in f32
+// (z <= 255, s has 11 significant bits). The scales are used as stored
+// (fp16), not rounded to bf16 as the TPU kernels do; the plain versions
+// (ops/qmatmul.py) compute the same sums in another order.
 
 #pragma once
 
@@ -86,6 +88,31 @@ __device__ __forceinline__ void load_x(const __nv_bfloat16* p, bool ok,
   }
 }
 
+// The zero points of columns c and c+1 (c even) of group grp: a functor that
+// warp_tile calls once per group and column pair.
+struct UniformZero {  // K1: one value for every group and column
+  float zc;
+  __device__ __forceinline__ float2 operator()(int, int) const {
+    return make_float2(zc, zc);
+  }
+};
+
+// K3: the module's v2 qzeros words as stored, [G, N*BITS/32] int32; column
+// c's zero is field c % PF of word c / PF, so c and c+1 (c even, PF >= 4)
+// share one word.
+template <int BITS>
+struct GroupZeros {
+  const uint32_t* qz;
+  int words;  // words per group: N*BITS/32
+  __device__ __forceinline__ float2 operator()(int grp, int c) const {
+    constexpr int PF = 32 / BITS;
+    constexpr uint32_t kMask = (1u << BITS) - 1u;
+    const uint32_t w = __ldg(qz + (size_t)grp * words + c / PF);
+    const int sh = BITS * (c % PF);
+    return make_float2((float)((w >> sh) & kMask), (float)((w >> (sh + BITS)) & kMask));
+  }
+};
+
 __device__ __forceinline__ float pair_sum(uint32_t v) {
   const __nv_bfloat162 b = *reinterpret_cast<__nv_bfloat162*>(&v);
   return __bfloat162float(b.x) + __bfloat162float(b.y);
@@ -94,12 +121,13 @@ __device__ __forceinline__ float pair_sum(uint32_t v) {
 // acc[mt][nt][i] = the warp's f32 product over K-rows [k_begin, k_end), both
 // multiples of g (itself a multiple of kChunk), for rows
 // m0 + 16*mt + lane/4 (+8 for i >= 2) and columns cols[nt] + 2*(lane%4) + (i&1).
-// x is [M, ldx] bf16; qw [K/PF, N] int32; sc [K/g, N] fp16.
-template <int BITS, int MT, int NT>
+// x is [M, ldx] bf16; qw [K/PF, N] int32; sc [K/g, N] fp16; zero gives the
+// zero points (UniformZero or GroupZeros).
+template <int BITS, int MT, int NT, class Z>
 __device__ __forceinline__ void warp_tile(
     const __nv_bfloat16* __restrict__ x, int ldx, int M, int m0,
     const uint32_t* __restrict__ qw, const __half* __restrict__ sc, int N,
-    const int (&cols)[NT], int g, int k_begin, int k_end, float zc,
+    const int (&cols)[NT], int g, int k_begin, int k_end, const Z& zero,
     float (&acc)[MT][NT][4]) {
   constexpr int PF = 32 / BITS;
   constexpr int KI = 4 * PF;       // K-rows per iteration: 4 words of a column
@@ -171,7 +199,8 @@ __device__ __forceinline__ void warp_tile(
         for (int nt = 0; nt < NT; ++nt) {
           const float2 s = __half22float2(
               *reinterpret_cast<const __half2*>(sc + (size_t)grp * N + cols[nt] + 2 * t));
-          const float zs0 = zc * s.x, zs1 = zc * s.y;
+          const float2 z = zero(grp, cols[nt] + 2 * t);
+          const float zs0 = z.x * s.x, zs1 = z.y * s.y;
           acc[mt][nt][0] += p[mt][nt][0] * s.x - x1[mt][0] * zs0;
           acc[mt][nt][1] += p[mt][nt][1] * s.y - x1[mt][0] * zs1;
           acc[mt][nt][2] += p[mt][nt][2] * s.x - x1[mt][1] * zs0;
@@ -212,14 +241,15 @@ __device__ __forceinline__ void store_bf16x2(__nv_bfloat16* p, float a, float b)
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// K1's kernel (qmatmul.cu); the fused MLP's down pass (qmlp.cu) launches it too.
+// K1's kernel with Z = UniformZero, K3's with Z = GroupZeros (qmatmul.cu); the
+// fused MLP's down pass (qmlp.cu) launches K1's too.
 // A block of kWarps warps owns rows m0 .. m0+16*MT-1 and columns
 // blockIdx.y*8*NT .. +8*NT-1; the warps split K by groups.
-template <int BITS, int MT, int NT>
+template <int BITS, int MT, int NT, class Z>
 __global__ void __launch_bounds__(kThreads)
     qmatmul_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
                    const uint32_t* __restrict__ qw, const __half* __restrict__ sc,
-                   int N, int g, float zc, __nv_bfloat16* __restrict__ out) {
+                   int N, int g, Z zero, __nv_bfloat16* __restrict__ out) {
   __shared__ float red[(kWarps - 1) * MT * NT * 4 * 32];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int m0 = blockIdx.x * 16 * MT;  // row tiles vary fastest: they share weights
@@ -230,7 +260,7 @@ __global__ void __launch_bounds__(kThreads)
   const int k_begin = (warp * G / kWarps) * g, k_end = ((warp + 1) * G / kWarps) * g;
 
   float acc[MT][NT][4];
-  warp_tile<BITS, MT, NT>(x, K, M, m0, qw, sc, N, cols, g, k_begin, k_end, zc, acc);
+  warp_tile<BITS, MT, NT, Z>(x, K, M, m0, qw, sc, N, cols, g, k_begin, k_end, zero, acc);
   block_reduce<MT, NT>(red, acc);
   if (warp != 0) return;
   const int t = lane & 3, gid = lane >> 2;

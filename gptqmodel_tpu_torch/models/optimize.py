@@ -2,7 +2,8 @@
 
 ``fuse_projections`` merges q/k/v into ``qkv_proj`` and gate/up into
 ``gate_up_proj`` (concatenated along the output columns, gate first), so one
-wider K1 launch replaces three or two. ``stack_moe_experts`` stacks each
+wider K1 or K3 launch replaces three or two; act-order members fuse when they
+share their permutation. ``stack_moe_experts`` stacks each
 layer's packed experts for the MoE kernels (``ops/qmoe.py``).
 ``enable_fused_mlp`` marks the layers whose MLP K2 can run. The JAX
 package's version also re-packs down to the TPU kernel's tile; the port's
@@ -19,7 +20,20 @@ from gptqmodel_tpu_torch.models.spec import ModelSpec
 from gptqmodel_tpu_torch.models.transformer import model_layers
 from gptqmodel_tpu_torch.ops.qlinear import QuantLinear
 from gptqmodel_tpu_torch.ops.qmoe import fuse_gate_up, stack_packed_experts
-from gptqmodel_tpu_torch.ops.registry import k1_eligible
+from gptqmodel_tpu_torch.ops.registry import mlp_fusable
+
+
+def _same_order(m: QuantLinear, a: QuantLinear) -> bool:
+    """Members share the order of their input columns: all contiguous, or all
+    act-order with one ``g_idx`` and a permutation baked in at post-init
+    (q/k/v and gate/up share their Hessian, so their permutations match).
+    A ``g_idx`` the reference route runs stays per module. JAX
+    ``optimize.py:28-40``."""
+    if (m.g_idx is None) != (a.g_idx is None) or (m.act_perm is None) != (a.act_perm is None):
+        return False
+    if m.g_idx is None:
+        return True
+    return m.act_perm is not None and torch.equal(m.g_idx, a.g_idx)
 
 
 def _can_fuse(mods: list) -> bool:
@@ -28,15 +42,15 @@ def _can_fuse(mods: list) -> bool:
     a = mods[0]
     return all(
         m.bits == a.bits and m.group_size == a.group_size
-        and m.in_features == a.in_features and m.v1 == a.v1
-        and m.g_idx is None and a.g_idx is None
+        and m.in_features == a.in_features and m.v1 == a.v1 and _same_order(m, a)
         and (m.bias is None) == (a.bias is None)
         for m in mods
     )
 
 
 def _concat_quant(mods: list[QuantLinear]) -> QuantLinear:
-    """Concatenate along out-features (the last axis of every tensor)."""
+    """Concatenate along out-features (the last axis of every tensor); the
+    first member's ``g_idx`` and ``act_perm`` serve all."""
     a = mods[0]
     cat = lambda f: torch.cat([getattr(m, f) for m in mods], dim=-1)
     return dataclasses.replace(
@@ -104,6 +118,6 @@ def enable_fused_mlp(spec: ModelSpec, params: dict) -> dict:
         mlp = lp["mlp"]
         gu, down = mlp.get("gate_up_proj"), mlp.get("down_proj")
         if (isinstance(gu, QuantLinear) and isinstance(down, QuantLinear)
-                and k1_eligible(gu) and k1_eligible(down)):
+                and mlp_fusable(gu, down)):
             mlp["_fused"] = True
     return params

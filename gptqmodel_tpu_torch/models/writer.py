@@ -3,7 +3,8 @@
 The JAX package's ``models/writer.py`` for ``QuantLinear`` and dense leaves:
 ``flatten_params`` turns the tree back into HF tensor names (a packed module
 into qweight, qzeros in the v1 interchange form, scales, g_idx and bias;
-``_``-prefixed runtime entries are skipped), ``_write_shards`` splits them by
+``_``-prefixed runtime entries are skipped, and the rows of an act-order
+module go back to the order they were loaded in, without its ``act_perm``), ``_write_shards`` splits them by
 size in the same order and under the same names, and ``save_quantized`` also
 writes ``quantize_config.json``, ``config.json`` with ``quantization_config``,
 ``quant_log.csv`` and the source's tokenizer files. For the same params tree
@@ -48,7 +49,12 @@ def flatten_params(tree, prefix: str = "", out: dict | None = None,
                                          v1=True)
         elif tree.v1 and not v1_zeros:
             qzeros = packing.convert_qzeros_v1_to_v2(qzeros, tree.bits)
-        out[f"{prefix}.qweight"] = tree.qweight.cpu()
+        qweight = tree.qweight
+        if tree.act_perm is not None:  # runtime group order -> the rows as loaded
+            inv = torch.argsort(tree.act_perm.long())
+            qweight = packing.pack_qweight(packing.unpack_qweight(qweight, tree.bits)[inv],
+                                           tree.bits)
+        out[f"{prefix}.qweight"] = qweight.cpu()
         out[f"{prefix}.qzeros"] = qzeros.cpu()
         out[f"{prefix}.scales"] = tree.scales.cpu()
         g = tree.group_size if tree.group_size > 0 else tree.in_features

@@ -32,8 +32,9 @@ LIB_NAME = "libgptqmodel_tpu_torch.so"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES = {"qmatmul": 0, "qmlp": 0, "gptq_whole_solve": 0, "gptq_block_inner": 0,
-            "qmoe_e2e": 0, "qmoe_mlp_dyn": 0, "qmoe_mlp": 0, "qmoe_matmul": 0}
+LAUNCHES = {"qmatmul": 0, "qmatmul_asym": 0, "qmlp": 0, "gptq_whole_solve": 0,
+            "gptq_block_inner": 0, "qmoe_e2e": 0, "qmoe_mlp_dyn": 0, "qmoe_mlp": 0,
+            "qmoe_matmul": 0}
 # what the last build did: commands, seconds, and the ptxas lines per source
 BUILD_INFO: dict = {}
 
@@ -106,6 +107,8 @@ def lib() -> ctypes.CDLL:
             vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             handle.gqt_qmatmul.argtypes = [vp, i, i, vp, vp, i, i, f, i, vp, vp]
             handle.gqt_qmatmul.restype = i
+            handle.gqt_qmatmul_asym.argtypes = [vp, i, i, vp, vp, vp, i, i, i, vp, vp]
+            handle.gqt_qmatmul_asym.restype = i
             handle.gqt_qmlp.argtypes = [vp, i, i, i, vp, vp, f, vp, vp, f, i, i, vp, vp, vp]
             handle.gqt_qmlp.restype = i
             handle.gqt_gptq_whole_solve.argtypes = [vp] * 4 + [i] * 4 + [f, i] + [vp] * 6

@@ -26,13 +26,17 @@ class QuantLinear:
     the v1 (-1 offset) form; the loader converts them to v2.
     ``zero_const`` is the uniform zero point found by
     ``registry.post_init_module`` (-1 when the zeros differ), which the
-    symmetric kernels need."""
+    symmetric kernels need. ``act_perm`` is runtime-only and never exported:
+    for an act-order module it is the stable sort of ``g_idx`` by which
+    post-init stored the ``qweight`` rows in group order; the forward gathers
+    x's columns by it and the writer puts the rows back."""
 
     qweight: torch.Tensor  # int32 [in/pf, out]
     qzeros: torch.Tensor  # int32 [groups, out/pf]
     scales: torch.Tensor  # float16 [groups, out]
     g_idx: torch.Tensor | None  # int32 [in] or None
     bias: torch.Tensor | None
+    act_perm: torch.Tensor | None = None  # int32 [in], runtime-only
     bits: int = 4
     group_size: int = 128
     in_features: int = 0
@@ -46,6 +50,7 @@ class QuantLinear:
         return dataclasses.replace(
             self, qweight=move(self.qweight), qzeros=move(self.qzeros),
             scales=move(self.scales), g_idx=move(self.g_idx), bias=move(self.bias),
+            act_perm=move(self.act_perm),
         )
 
 
@@ -91,6 +96,8 @@ def make_quant_linear(
 def dequantize_weight(p: QuantLinear, dtype=torch.float32) -> torch.Tensor:
     """Unpack and dequantize to a dense ``w [in, out]`` (``y = x @ w``)."""
     codes = packing.unpack_qweight(p.qweight, p.bits)
+    if p.act_perm is not None:  # runtime group order -> the order of g_idx
+        codes = codes[torch.argsort(p.act_perm.long())]
     zeros = packing.unpack_qzeros(p.qzeros, p.bits, v1=p.v1)
     scales = p.scales.to(dtype)
     if p.g_idx is not None:

@@ -1,16 +1,26 @@
-"""K1: symmetric dequant-matmul ``y = x @ dequant(qweight)`` on the card.
+"""K1 and K3: dequant-matmul ``y = x @ dequant(qweight)`` on the card.
 
-The kernel (``csrc/qmatmul.cu``, arithmetic in ``csrc/qmm_common.cuh``)
-replaces the TPU kernel ``_qmm_rt_sym_kernel``
-(``gptqmodel_tpu/ops/pallas_qmatmul.py:198``, reached through ``qmatmul``
-:557 with ``rt=True, zero_const>=0``). It reads the GPTQ interchange layout
-directly and takes contiguous groups of a multiple of 128, one uniform zero
-point, 2, 4 or 8 bits, bf16 activations and fp16 scales.
+Both kernels (``csrc/qmatmul.cu``, arithmetic in ``csrc/qmm_common.cuh``)
+read the GPTQ interchange layout directly and take contiguous groups of a
+multiple of 128, 2, 4 or 8 bits, bf16 activations and fp16 scales.
 
-``qmatmul`` launches the kernel for a CUDA tensor and uses ``qmatmul_plain``
-only for a tensor on the CPU. ``qmatmul_plain`` computes the kernel's sums in
-float32 (per-group partial dots, then the zero-point correction), in another
-order; the kernel's products are exact, so the two differ by float32
+- K1 (``qmatmul``) replaces the TPU kernel ``_qmm_rt_sym_kernel``
+  (``gptqmodel_tpu/ops/pallas_qmatmul.py:198``, reached through ``qmatmul``
+  :557 with ``rt=True, zero_const>=0``): one uniform zero point.
+- K3 (``qmatmul_asym``) replaces ``_qmm_rt_kernel`` (``:117``, reached with
+  ``rt=True, zero_const<0``): a zero point per group and column, read from
+  the module's v2 ``qzeros`` words as they are.
+
+The TPU kernels' ``rt_supported`` (``:456``) also asks ``K % (8*g) == 0``,
+for their 8-group K tiles; the CUDA kernels split K by whole groups, so they
+need only ``K % g == 0``: the same arithmetic, on another tile. They keep the
+fp16 scales as stored, where the TPU kernels round them to bf16 (``:683``,
+``:692``).
+
+Each wrapper launches its kernel for a CUDA tensor and uses its plain version
+only for a tensor on the CPU. The plain versions compute the kernels' sums
+in float32 (per-group partial dots, then the zero-point correction), in
+another order; the kernels' products are exact, so the two differ by float32
 summation order before the final rounding to the activation type.
 """
 
@@ -19,7 +29,7 @@ from __future__ import annotations
 import torch
 
 from gptqmodel_tpu_torch.ops import _build
-from gptqmodel_tpu_torch.ops.pack import unpack_qweight
+from gptqmodel_tpu_torch.ops.pack import unpack_qweight, unpack_qzeros
 
 KERNEL_BITS = (2, 4, 8)
 
@@ -31,19 +41,21 @@ def qmatmul_supported(bits: int, group_size: int, K: int, N: int) -> bool:
     return bits in KERNEL_BITS and g % 128 == 0 and K % g == 0 and N % 8 == 0
 
 
-def grouped_dot_f32(x, qweight, scales, *, bits, group_size, zero_const):
-    """float32 ``x @ dequant(qweight)`` as the kernel sums it:
-    ``Σ_g (x_g @ codes_g)·s_g − (Σ x_g)·(zc·s_g)``."""
+def grouped_dot_f32(x, qweight, scales, *, bits, group_size, zero_const=None, zeros=None):
+    """float32 ``x @ dequant(qweight)`` as the kernels sum it:
+    ``Σ_g (x_g @ codes_g)·s_g − (Σ x_g)·(z_g·s_g)``, with ``z_g`` the uniform
+    ``zero_const`` (K1) or row ``g`` of the ``[G, N]`` v2 ``zeros`` (K3)."""
     M, K = x.shape
     g = group_size if group_size > 0 else K
     codes = unpack_qweight(qweight, bits).to(torch.float32)  # [K, N]
     xf = x.to(torch.float32)
     sf = scales.to(torch.float32)
+    zs = sf * (zero_const if zeros is None else zeros.to(torch.float32))  # exact
     acc = torch.zeros((M, codes.shape[1]), dtype=torch.float32, device=x.device)
     for gi in range(K // g):
         xg = xf[:, gi * g:(gi + 1) * g]
         part = xg @ codes[gi * g:(gi + 1) * g]
-        acc += part * sf[gi] - xg.sum(dim=1, keepdim=True) * (zero_const * sf[gi])
+        acc += part * sf[gi] - xg.sum(dim=1, keepdim=True) * zs[gi]
     return acc
 
 
@@ -54,25 +66,35 @@ def qmatmul_plain(x, qweight, scales, *, bits, group_size, zero_const):
     ).to(x.dtype)
 
 
-def _check_operands(x, qweight, scales, *, bits, group_size, zero_const):
+def _check_operands(x, qweight, scales, *, bits, group_size, zero_const=None, qzeros=None,
+                    name="K1"):
+    """Raise on what the kernel does not take: K1 (``zero_const``) or K3
+    (``qzeros``)."""
     M, K = x.shape
     N = qweight.shape[1]
     if not qmatmul_supported(bits, group_size, K, N):
-        raise ValueError(f"K1 does not take bits={bits} group_size={group_size} K={K} N={N}")
-    if zero_const < 0:
+        raise ValueError(f"{name} does not take bits={bits} group_size={group_size} K={K} N={N}")
+    if qzeros is None and zero_const < 0:
         raise ValueError("K1 needs one uniform zero point (symmetric weights)")
     if x.dtype != torch.bfloat16:
-        raise TypeError(f"K1 takes bf16 activations, got {x.dtype}")
+        raise TypeError(f"{name} takes bf16 activations, got {x.dtype}")
     g = group_size if group_size > 0 else K
     if qweight.dtype != torch.int32 or tuple(qweight.shape) != (K * bits // 32, N):
         raise ValueError(f"qweight {tuple(qweight.shape)} {qweight.dtype} for K={K} N={N}")
     if scales.dtype != torch.float16 or tuple(scales.shape) != (K // g, N):
         raise ValueError(f"scales {tuple(scales.shape)} {scales.dtype} for K={K} g={g}")
-    for t in (x, qweight, scales):
+    operands = (x, qweight, scales)
+    if qzeros is not None:
+        if (qzeros.dtype != torch.int32 or N * bits % 32
+                or tuple(qzeros.shape) != (K // g, N * bits // 32)):
+            raise ValueError(f"qzeros {tuple(qzeros.shape)} {qzeros.dtype} for K={K} g={g} "
+                             f"N={N}")
+        operands += (qzeros,)
+    for t in operands:
         if t.device != x.device or not t.is_contiguous():
-            raise ValueError("K1 operands must be contiguous and on one device")
+            raise ValueError(f"{name} operands must be contiguous and on one device")
     if x.data_ptr() % 16 or scales.data_ptr() % 4:
-        raise ValueError("K1 reads x rows as 16-byte vectors and scales in pairs: "
+        raise ValueError(f"{name} reads x rows as 16-byte vectors and scales in pairs: "
                          "x must be 16-byte and scales 4-byte aligned")
 
 
@@ -99,4 +121,36 @@ def qmatmul(x, qweight, scales, *, bits, group_size, zero_const):
     )
     _build.check(rc, "qmatmul")
     _build.LAUNCHES["qmatmul"] += 1
+    return out
+
+
+def qmatmul_asym_plain(x, qweight, scales, qzeros, *, bits, group_size):
+    """Plain PyTorch version of K3, rounded to the activation type."""
+    zeros = unpack_qzeros(qzeros, bits)
+    return grouped_dot_f32(x, qweight, scales, bits=bits, group_size=group_size,
+                           zeros=zeros).to(x.dtype)
+
+
+def qmatmul_asym(x, qweight, scales, qzeros, *, bits, group_size):
+    """``x [M, K] @ dequant(qweight)`` with a zero point per group and column
+    (``qzeros``: v2 words ``[K/g, N*bits/32]``) -> ``[M, N]`` in x's type.
+
+    A CUDA tensor goes to the kernel (or raises); a CPU tensor to
+    ``qmatmul_asym_plain``."""
+    if x.device.type == "cpu":
+        return qmatmul_asym_plain(x, qweight, scales, qzeros, bits=bits, group_size=group_size)
+    _check_operands(x, qweight, scales, bits=bits, group_size=group_size, qzeros=qzeros,
+                    name="K3")
+    M, K = x.shape
+    N = qweight.shape[1]
+    g = group_size if group_size > 0 else K
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    if M == 0:
+        return out
+    rc = _build.lib().gqt_qmatmul_asym(
+        x.data_ptr(), M, K, qweight.data_ptr(), scales.data_ptr(), qzeros.data_ptr(), N, g,
+        bits, out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(rc, "qmatmul_asym")
+    _build.LAUNCHES["qmatmul_asym"] += 1
     return out

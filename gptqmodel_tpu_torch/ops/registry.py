@@ -1,11 +1,22 @@
 """Which computation a quantized module runs, and its runtime preparation.
 
-There is no backend switch. A module inside K1's contract (symmetric, one
-uniform zero point, contiguous groups, 2/4/8 bits) runs ``qmatmul``, which
-launches the kernel for a CUDA tensor and runs its plain version only for a
-CPU tensor. A module outside the contract runs the dequantize-then-matmul
-reference on the CPU, and raises ``NotImplementedError`` on the card, naming
-the TPU kernel whose port a later slice brings.
+There is no backend switch. On the card a module takes the route the JAX
+package's registry takes on the TPU (``gptqmodel_tpu/ops/registry.py:91-162,
+225-292``):
+
+| module | route |
+| --- | --- |
+| contiguous or balanced act-order groups inside the kernels' contract (2/4/8 bits, groups a multiple of 128, ``qmatmul_supported``), one uniform zero point | K1 (``qmatmul``), after ``x[:, act_perm]`` for act-order |
+| the same with a zero point per group (``zero_const < 0``) | K3 (``qmatmul_asym``), after the same gather |
+| any other ``g_idx`` (ragged, or act-order outside the contract) | the dequantize-then-matmul reference ``qlinear_forward_torch`` (the JAX package's XLA path), at any M |
+| contiguous, outside the contract (groups of 32 or 64, 3/5/6/7 bits) | ``NotImplementedError`` naming the TPU kernel whose port a later slice brings (K6, K4 or K5) |
+
+K1 and K3 modules stay on their kernel at every M, prefill included, as the
+reference's rt-layout modules do. Each wrapper launches its kernel for a CUDA
+tensor and runs its plain version only for a CPU tensor; on the CPU a module
+outside the contract runs the reference. K2 (``qmlp``) takes an MLP only when
+both its modules run K1 with no act-order permutation (the JAX package's
+``qmlp_forward`` refuses act-order and per-group zeros alike).
 
 Stacked MoE experts (``ops/qmoe.py``) take K10, or with the JAX package's
 switches K11/K12, when ``qmoe_supported`` holds, else K13 or the dense
@@ -23,68 +34,119 @@ import torch
 
 from gptqmodel_tpu_torch.ops import pack as packing
 from gptqmodel_tpu_torch.ops.qlinear import QuantLinear, qlinear_forward_torch
-from gptqmodel_tpu_torch.ops.qmatmul import qmatmul, qmatmul_supported
+from gptqmodel_tpu_torch.ops.qmatmul import qmatmul, qmatmul_asym, qmatmul_supported
 from gptqmodel_tpu_torch.ops.qmlp import qmlp, qmlp_supported
 from gptqmodel_tpu_torch.ops.qmoe import KERNEL_BITS as QMOE_BITS
 from gptqmodel_tpu_torch.ops.qmoe import kernel_contract
 
 
+def _act_order_perm(p: QuantLinear) -> torch.Tensor | None:
+    """The stable sort of ``g_idx`` when it is a balanced grouping (every one
+    of the groups 0..G-1 has exactly ``group_size`` columns), as a GPTQ
+    act-order permutation of contiguous groups is; None otherwise (a ragged
+    ``g_idx`` keeps the reference route). JAX ``registry.py:225``."""
+    if p.g_idx is None:
+        return None
+    g = p.in_features if p.group_size in (-1, None) else p.group_size
+    if p.in_features % g:
+        return None
+    G = p.in_features // g
+    gi = p.g_idx.long()
+    if bool((gi < 0).any()) or bool((gi >= G).any()):
+        return None
+    if not bool((torch.bincount(gi, minlength=G) == g).all()):
+        return None
+    return torch.argsort(gi, stable=True).to(torch.int32)
+
+
 def post_init_module(p: QuantLinear) -> QuantLinear:
-    """Runtime preparation: v2 zeros, fp16 scales, and the uniform zero point
-    (``zero_const``, -1 when the zeros differ) that K1 and K2 need. The
-    packed weights stay in the interchange layout."""
+    """Runtime preparation: v2 zeros, fp16 scales, the uniform zero point
+    (``zero_const``, -1 when the zeros differ) that K1 and K2 need, and for a
+    balanced act-order module inside the kernels' contract the ``qweight``
+    rows permuted into group order on the module's device, with ``act_perm``
+    (JAX ``registry.py:265-281``). Otherwise the packed weights stay in the
+    interchange layout. ``g_idx`` stays for the export."""
+    if p.act_perm is not None:
+        return p
     zeros = packing.unpack_qzeros(p.qzeros, p.bits, v1=p.v1)
     first = zeros.reshape(-1)[0]
     zero_const = float(first) if bool((zeros == first).all()) else -1.0
     qzeros = packing.convert_qzeros_v1_to_v2(p.qzeros, p.bits) if p.v1 else p.qzeros
+    qweight, act_perm = p.qweight, None
+    if p.g_idx is not None and qmatmul_supported(p.bits, p.group_size, p.in_features,
+                                                 p.out_features):
+        act_perm = _act_order_perm(p)
+        if act_perm is not None:
+            codes = packing.unpack_qweight(p.qweight, p.bits)
+            qweight = packing.pack_qweight(codes[act_perm.long()], p.bits)
     return dataclasses.replace(
-        p, qzeros=qzeros, scales=p.scales.to(torch.float16), v1=False,
-        zero_const=zero_const,
+        p, qweight=qweight, qzeros=qzeros, scales=p.scales.to(torch.float16), v1=False,
+        zero_const=zero_const, act_perm=act_perm,
     )
 
 
 def post_init_params(tree):
-    """Walk a params tree, preparing every QuantLinear."""
+    """Walk a params tree, preparing every QuantLinear. Dicts and lists are
+    updated in place, so a module's loaded tensors go as soon as its
+    prepared form exists: an act-order module's rows, permuted into new
+    words, are not held twice for the whole tree."""
     if isinstance(tree, QuantLinear):
         return post_init_module(tree)
     if isinstance(tree, dict):
-        return {k: post_init_params(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [post_init_params(v) for v in tree]
+        for k, v in tree.items():
+            tree[k] = post_init_params(v)
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            tree[i] = post_init_params(v)
     return tree
 
 
-def k1_eligible(p: QuantLinear) -> bool:
-    return (p.zero_const >= 0 and p.g_idx is None
-            and qmatmul_supported(p.bits, p.group_size, p.in_features, p.out_features))
+def kernel_route(p: QuantLinear) -> str | None:
+    """``"K1"`` or ``"K3"`` for a module that runs a kernel, ``"reference"``
+    for a ``g_idx`` that post-init did not bake into the rows, None for a
+    module whose kernel a later slice ports."""
+    if p.g_idx is not None and p.act_perm is None:
+        return "reference"
+    if not qmatmul_supported(p.bits, p.group_size, p.in_features, p.out_features):
+        return None
+    return "K1" if p.zero_const >= 0 else "K3"
+
+
+def mlp_fusable(gu: QuantLinear, down: QuantLinear) -> bool:
+    """K2's module contract: both run K1, with no act-order permutation
+    (down's input is the kernel's own intermediate, which no gather can
+    reach; JAX ``registry.py:182-191``)."""
+    return all(kernel_route(m) == "K1" and m.act_perm is None for m in (gu, down))
 
 
 def _later_kernel(p: QuantLinear) -> str:
     """The TPU kernel that would run this module, ported in a later slice."""
     if p.bits in (3, 5, 6, 7):
-        return ("K4 _qmm_rtp_sym_kernel" if p.zero_const >= 0
-                else "K5 _qmm_rtp_kernel") + " (ops/pallas_qmatmul.py)"
-    if p.g_idx is not None:
-        return "K6 _qmm_kernel with the act-order permutation (ops/pallas_qmatmul.py:55)"
-    if p.zero_const < 0:
-        return "K3 _qmm_rt_kernel (ops/pallas_qmatmul.py:117)"
+        return ("K4 _qmm_rtp_sym_kernel (ops/pallas_qmatmul.py:385)" if p.zero_const >= 0
+                else "K5 _qmm_rtp_kernel (ops/pallas_qmatmul.py:421)")
     return "K6 _qmm_kernel (ops/pallas_qmatmul.py:55)"
 
 
 def qlinear_forward(p: QuantLinear, x: torch.Tensor) -> torch.Tensor:
-    if not k1_eligible(p):
-        if x.device.type == "cpu":
-            return qlinear_forward_torch(p, x)
+    route = kernel_route(p)
+    if route == "reference" or (route is None and x.device.type == "cpu"):
+        return qlinear_forward_torch(p, x)
+    if route is None:
         raise NotImplementedError(
             f"no CUDA kernel yet for bits={p.bits} group_size={p.group_size} "
-            f"zero_const={p.zero_const} g_idx={'set' if p.g_idx is not None else 'none'}: "
-            f"needs the port of {_later_kernel(p)}"
+            f"zero_const={p.zero_const}: needs the port of {_later_kernel(p)}"
         )
     lead = x.shape[:-1]
-    y = qmatmul(
-        x.reshape(-1, p.in_features).contiguous(), p.qweight, p.scales,
-        bits=p.bits, group_size=p.group_size, zero_const=p.zero_const,
-    ).reshape(*lead, p.out_features)
+    x2 = x.reshape(-1, p.in_features)
+    # act-order: the rows are stored in group order; one gather of x's columns
+    # replaces the per-row g_idx lookup (JAX registry.py:152-153)
+    x2 = x2.contiguous() if p.act_perm is None else torch.index_select(x2, 1, p.act_perm)
+    kw = dict(bits=p.bits, group_size=p.group_size)
+    if route == "K1":
+        y = qmatmul(x2, p.qweight, p.scales, zero_const=p.zero_const, **kw)
+    else:
+        y = qmatmul_asym(x2, p.qweight, p.scales, p.qzeros, **kw)
+    y = y.reshape(*lead, p.out_features)
     if p.bias is not None:
         y = y + p.bias.to(y.dtype)
     return y
@@ -95,7 +157,7 @@ def qmlp_forward(gu: QuantLinear, down: QuantLinear, x: torch.Tensor, act: str):
     its contract (the caller then runs the two projections)."""
     rows = x.numel() // x.shape[-1]
     D, F = gu.in_features, gu.out_features // 2
-    if not (act == "silu" and k1_eligible(gu) and k1_eligible(down)
+    if not (act == "silu" and mlp_fusable(gu, down)
             and gu.bias is None and gu.bits == down.bits
             and gu.group_size == down.group_size and down.in_features == F
             and qmlp_supported(bits=gu.bits, group_size=gu.group_size, D=D, F=F, M=rows)):

@@ -3,8 +3,13 @@
 ``write_random_gptq_checkpoint`` writes a llama checkpoint as a GPTQ
 exporter leaves it: ``config.json`` (with ``quantization_config``),
 ``quantize_config.json`` and sharded safetensors with an index. The packed
-modules hold uniform random codes, one symmetric zero point in the v1 form and
-fp16 group scales; embeddings, norms and the dense ``lm_head`` are bf16.
+modules hold uniform random codes, one symmetric zero point in the v1 form
+(or with ``sym=False`` a random zero point per group and column) and fp16
+group scales; with ``desc_act=True`` each module's ``g_idx`` is an act-order
+grouping, one random permutation per layer input, shared by q/k/v and by
+gate/up as a GPTQ export shares it. Embeddings, norms and the dense
+``lm_head`` are bf16; numpy draws them, or torch on the device the caller
+names.
 ``write_random_fp_checkpoint`` writes the dense checkpoint that quantization
 starts from: every linear weight N(0, 0.02) (HF's ``initializer_range``),
 norms 1, drawn by torch on the device the caller names.
@@ -82,9 +87,10 @@ QWEN3_30B_A3B_CONFIG = {
 WEIGHT_STD = 0.02
 
 
-def gptq_config(bits: int = 4, group_size: int = 128) -> dict:
-    """``quantize_config.json`` of a symmetric GPTQ v1 export, dense lm_head."""
-    return {"bits": bits, "group_size": group_size, "desc_act": False, "sym": True,
+def gptq_config(bits: int = 4, group_size: int = 128, sym: bool = True,
+                desc_act: bool = False) -> dict:
+    """``quantize_config.json`` of a GPTQ v1 export, dense lm_head."""
+    return {"bits": bits, "group_size": group_size, "desc_act": desc_act, "sym": sym,
             "lm_head": False, "quant_method": "gptq", "checkpoint_format": "gptq"}
 
 
@@ -99,28 +105,59 @@ def _module_layout(in_f: int, out_f: int, bits: int, group_size: int):
     return pf, word - 2**32 if word >= 2**31 else word, in_f // group_size, WEIGHT_STD / code_std
 
 
+def act_order_g_idx(perm: np.ndarray, group_size: int) -> np.ndarray:
+    """The ``g_idx`` GPTQ writes with ``desc_act``: column ``perm[j]`` is the
+    ``j``-th quantized and belongs to group ``j // group_size``."""
+    g_idx = np.empty(perm.shape[0], np.int32)
+    g_idx[perm] = np.arange(perm.shape[0]) // group_size
+    return g_idx
+
+
 def random_gptq_module(rng: np.random.Generator, in_f: int, out_f: int, bits: int = 4,
-                       group_size: int = 128) -> dict[str, np.ndarray]:
-    """qweight, qzeros (v1), scales and g_idx of one symmetric module whose
-    dequantized weights have a standard deviation near ``WEIGHT_STD``."""
-    pf, word, groups, unit = _module_layout(in_f, out_f, bits, group_size)
+                       group_size: int = 128, sym: bool = True,
+                       perm: np.ndarray | None = None) -> dict[str, np.ndarray]:
+    """qweight, qzeros (v1), scales and g_idx of one module whose dequantized
+    weights have a standard deviation near ``WEIGHT_STD``. ``sym=False``
+    draws each group's zero points from the middle half of the codes after
+    the rest; ``perm`` (a permutation of the inputs) gives an act-order
+    ``g_idx``."""
+    pf, _, groups, unit = _module_layout(in_f, out_f, bits, group_size)
     scales = rng.uniform(0.5, 1.5, (groups, out_f)) * unit
-    return {
-        "qweight": rng.integers(0, 2**32, (in_f // pf, out_f), dtype=np.uint32).view(np.int32),
-        "qzeros": np.full((groups, out_f // pf), word, np.int32),
-        "scales": scales.astype(np.float16),
-        "g_idx": (np.arange(in_f) // group_size).astype(np.int32),
-    }
+    qweight = rng.integers(0, 2**32, (in_f // pf, out_f), dtype=np.uint32).view(np.int32)
+    qzeros, g_idx = _zeros_and_g_idx(rng, in_f, out_f, bits, group_size, sym, perm)
+    return {"qweight": qweight, "qzeros": qzeros, "scales": scales.astype(np.float16),
+            "g_idx": g_idx}
+
+
+def _zeros_and_g_idx(rng: np.random.Generator | None, in_f: int, out_f: int, bits: int,
+                     group_size: int, sym: bool, perm: np.ndarray | None):
+    """The v1 ``qzeros`` words and the ``g_idx`` of a random module: one
+    symmetric zero word, or with ``sym=False`` zero points drawn by ``rng``
+    from the middle half of the codes; a contiguous ``g_idx``, or the
+    act-order one of ``perm``."""
+    pf, word, groups, _ = _module_layout(in_f, out_f, bits, group_size)
+    if sym:
+        qzeros = np.full((groups, out_f // pf), word, np.int32)
+    else:
+        lo = 2 ** (bits - 2)
+        z1 = (rng.integers(lo, 3 * lo, (groups, out_f)) - 1).astype(np.uint32)  # v1: z - 1
+        z1 = z1.reshape(groups, out_f // pf, pf) << (bits * np.arange(pf, dtype=np.uint32))
+        qzeros = np.bitwise_or.reduce(z1, axis=2).view(np.int32)
+    g_idx = (np.arange(in_f) // group_size if perm is None
+             else act_order_g_idx(perm, group_size)).astype(np.int32)
+    return qzeros, g_idx
 
 
 def random_quant_linear(rng: np.random.Generator, in_f: int, out_f: int, bits: int = 4,
-                        group_size: int = 128, device="cuda") -> QuantLinear:
+                        group_size: int = 128, device="cuda", sym: bool = True,
+                        perm: np.ndarray | None = None) -> QuantLinear:
     """``random_gptq_module`` as a ``QuantLinear`` on ``device``, v1 zeros as
     on disk (``registry.post_init_module`` prepares it)."""
-    a = random_gptq_module(rng, in_f, out_f, bits, group_size)
+    a = random_gptq_module(rng, in_f, out_f, bits, group_size, sym, perm)
     t = {k: torch.from_numpy(a[k]).to(device) for k in ("qweight", "qzeros", "scales")}
-    return QuantLinear(**t, g_idx=None, bias=None, bits=bits, group_size=group_size,
-                       in_features=in_f, out_features=out_f, sym=True, v1=True)
+    g_idx = None if perm is None else torch.from_numpy(a["g_idx"]).to(device)
+    return QuantLinear(**t, g_idx=g_idx, bias=None, bits=bits, group_size=group_size,
+                       in_features=in_f, out_features=out_f, sym=sym, v1=True)
 
 
 def _normal_bf16(rng: np.random.Generator, shape) -> torch.Tensor:
@@ -141,24 +178,43 @@ def _projections(c: dict) -> dict[str, tuple[int, int]]:
 
 
 def write_random_gptq_checkpoint(path: str | Path, hf_config: dict, seed: int = 0,
-                                 bits: int = 4, group_size: int = 128) -> int:
+                                 bits: int = 4, group_size: int = 128, sym: bool = True,
+                                 desc_act: bool = False,
+                                 device: str | torch.device | None = None) -> int:
     """Write the checkpoint into ``path``: one shard for the embedding and the
     final norm, one per decoder layer, one for ``lm_head``. Each tensor draws
-    from its own stream of ``seed``. Returns the bytes of the shards."""
-    qcfg = gptq_config(bits, group_size)
+    from its own stream of ``seed``, with numpy, or with torch on ``device``
+    when one is named (a card draws Llama-3-8B's 5.7 GB in seconds); the
+    act-order permutations from numpy streams of their own, so the defaults
+    write the same bytes as before those options existed. Returns the bytes
+    of the shards."""
+    qcfg = gptq_config(bits, group_size, sym, desc_act)
 
     projections = _projections(hf_config)
+    # the input each module reads: q/k/v share one, gate/up another
+    inputs = {"self_attn.q_proj": 0, "self_attn.k_proj": 0, "self_attn.v_proj": 0,
+              "self_attn.o_proj": 1, "mlp.gate_proj": 2, "mlp.up_proj": 2, "mlp.down_proj": 3}
 
     def layer(i, pre):
         rng = np.random.default_rng([seed, 1, i])
+        gen = None if device is None else _torch_gen(device, [seed, 1, i])
         tensors = {}
         for proj, (in_f, out_f) in projections.items():
-            for leaf, arr in random_gptq_module(rng, in_f, out_f, bits, group_size).items():
+            perm = (np.random.default_rng([seed, 5, i, inputs[proj]]).permutation(in_f)
+                    if desc_act else None)
+            module = (random_gptq_module(rng, in_f, out_f, bits, group_size, sym, perm)
+                      if gen is None else
+                      _torch_gptq_module(gen, in_f, out_f, bits, group_size, device, rng, sym,
+                                         perm))
+            for leaf, arr in module.items():
                 tensors[f"{pre}{proj}.{leaf}"] = arr
         return tensors
 
     def normal(shape, key):
-        return _normal_bf16(np.random.default_rng([seed, *key]), shape)
+        if device is None:
+            return _normal_bf16(np.random.default_rng([seed, *key]), shape)
+        w = torch.randn(shape, generator=_torch_gen(device, [seed, *key]), device=device)
+        return (w * WEIGHT_STD).to(torch.bfloat16).cpu()
 
     total = _write_llama(path, hf_config, layer, normal, {"quantization_config": qcfg})
     (Path(path) / QUANT_CONFIG_FILENAME).write_text(json.dumps(qcfg, indent=1))
@@ -175,9 +231,8 @@ def write_random_fp_checkpoint(path: str | Path, hf_config: dict, seed: int = 0,
     bytes of the shards."""
 
     def normal(shape, key):
-        g = torch.Generator(device).manual_seed(
-            int(np.random.SeedSequence([seed, *key]).generate_state(1)[0]))
-        w = torch.randn(shape, generator=g, device=device) * WEIGHT_STD
+        w = torch.randn(shape, generator=_torch_gen(device, [seed, *key]),
+                        device=device) * WEIGHT_STD
         return w.to(dtype).cpu()
 
     projections = _projections(hf_config)
@@ -227,17 +282,25 @@ def _write_llama(path, hf_config: dict, layer_tensors, normal, config_extra: dic
     return total
 
 
+def _torch_gen(device, key) -> torch.Generator:
+    """A torch generator on ``device`` seeded from the key's numpy seed sequence."""
+    return torch.Generator(device).manual_seed(
+        int(np.random.SeedSequence(key).generate_state(1)[0]))
+
+
 def _torch_gptq_module(gen: torch.Generator, in_f: int, out_f: int, bits: int,
-                       group_size: int, device) -> dict[str, torch.Tensor]:
-    """``random_gptq_module`` drawn by ``gen`` on ``device``, on the CPU."""
-    pf, word, groups, unit = _module_layout(in_f, out_f, bits, group_size)
+                       group_size: int, device, rng: np.random.Generator | None = None,
+                       sym: bool = True,
+                       perm: np.ndarray | None = None) -> dict[str, torch.Tensor]:
+    """``random_gptq_module`` with its codes and scales drawn by ``gen`` on
+    ``device`` and its zeros and ``g_idx`` by ``rng``, on the CPU."""
+    pf, _, groups, unit = _module_layout(in_f, out_f, bits, group_size)
     qweight = torch.randint(-2**31, 2**31, (in_f // pf, out_f), generator=gen,
                             dtype=torch.int64, device=device).to(torch.int32)
     scales = (torch.rand((groups, out_f), generator=gen, device=device) + 0.5) * unit
-    return {"qweight": qweight.cpu(),
-            "qzeros": torch.full((groups, out_f // pf), word, dtype=torch.int32),
-            "scales": scales.to(torch.float16).cpu(),
-            "g_idx": (torch.arange(in_f, dtype=torch.int32) // group_size)}
+    qzeros, g_idx = _zeros_and_g_idx(rng, in_f, out_f, bits, group_size, sym, perm)
+    return {"qweight": qweight.cpu(), "qzeros": torch.from_numpy(qzeros),
+            "scales": scales.to(torch.float16).cpu(), "g_idx": torch.from_numpy(g_idx)}
 
 
 def write_random_qwen3_moe_checkpoint(path: str | Path, hf_config: dict, seed: int = 0,
@@ -257,8 +320,7 @@ def write_random_qwen3_moe_checkpoint(path: str | Path, hf_config: dict, seed: i
     attn = {k: v for k, v in _projections(c).items() if k.startswith("self_attn.")}
 
     def gen(key) -> torch.Generator:
-        return torch.Generator(device).manual_seed(
-            int(np.random.SeedSequence([seed, *key]).generate_state(1)[0]))
+        return _torch_gen(device, [seed, *key])
 
     def normal(shape, key, std=WEIGHT_STD):
         w = torch.randn(shape, generator=gen(key), device=device) * std

@@ -22,7 +22,13 @@ from gptqmodel_tpu_torch.ops.gptq_solve import (
     gptq_whole_solve,
     gptq_whole_solve_plain,
 )
-from gptqmodel_tpu_torch.ops.qmatmul import qmatmul, qmatmul_plain
+from gptqmodel_tpu_torch.ops.qlinear import qlinear_forward_torch
+from gptqmodel_tpu_torch.ops.qmatmul import (
+    qmatmul,
+    qmatmul_asym,
+    qmatmul_asym_plain,
+    qmatmul_plain,
+)
 from gptqmodel_tpu_torch.ops import qmoe
 from gptqmodel_tpu_torch.ops.qmlp import qmlp, qmlp_plain
 from gptqmodel_tpu_torch.ops.registry import post_init_module
@@ -124,6 +130,106 @@ def test_qmatmul_refuses_what_it_does_not_take(cuda_device):
         qmatmul(x.float(), p.qweight, p.scales, bits=4, group_size=128, zero_const=8.0)
     with pytest.raises(ValueError):
         qmatmul(x, p.qweight, p.scales, bits=4, group_size=128, zero_const=-1.0)
+
+
+# K3: M = 1 one row tile, 8 the decode size, 64 four row tiles, 1024 the
+# 32 x 32 tiles; g = -1 is one group over all of K
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("M", [1, 8, 64, 1024])
+@pytest.mark.parametrize("g", [128, 256, -1])
+def test_qmatmul_asym_kernel_matches_plain(cuda_device, bits, M, g):
+    """Per-group zeros read from the v2 qzeros words: exact products and
+    z*s, f32 sums in another order, one rounding to bf16: 1e-3 relative, and
+    the same bits on every run."""
+    rng = np.random.default_rng(bits * 1000 + M + g)
+    K, N = 1024, 384
+    p = post_init_module(random_quant_linear(rng, K, N, bits, g if g > 0 else K,
+                                             device=cuda_device, sym=False))
+    assert p.zero_const < 0
+    x = _x(rng, M, K, cuda_device)
+    args, kw = (x, p.qweight, p.scales, p.qzeros), dict(bits=bits, group_size=g)
+    before = _build.LAUNCHES["qmatmul_asym"]
+    y = qmatmul_asym(*args, **kw)
+    ref = qmatmul_asym_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["qmatmul_asym"] == before + 1
+    assert y.dtype == torch.bfloat16 and y.shape == (M, N)
+    assert _rel(y, ref) <= 1e-3
+    assert all(torch.equal(y, qmatmul_asym(*args, **kw)) for _ in range(2))
+
+
+def test_qmatmul_asym_exact_inputs_give_equal_outputs(cuda_device):
+    """Integer activations and power-of-two scales: every product, z*s and
+    partial sum is exact, so kernel and plain version agree bit for bit."""
+    rng = np.random.default_rng(17)
+    K, N = 512, 256
+    p = post_init_module(random_quant_linear(rng, K, N, 4, device=cuda_device, sym=False))
+    p.scales = torch.from_numpy(2.0 ** rng.integers(-7, -4, p.scales.shape)).to(
+        cuda_device).to(torch.float16)
+    x = torch.from_numpy(rng.integers(-4, 5, (8, K)).astype(np.float32)).to(
+        cuda_device).to(torch.bfloat16)
+    args, kw = (x, p.qweight, p.scales, p.qzeros), dict(bits=4, group_size=128)
+    assert torch.equal(qmatmul_asym(*args, **kw), qmatmul_asym_plain(*args, **kw))
+
+
+def test_qmatmul_asym_refuses_what_it_does_not_take(cuda_device):
+    """No plain fallback on the card: f32 rows, groups of 64, qzeros of the
+    wrong shape and CPU zeros raise."""
+    rng = np.random.default_rng(15)
+    p = post_init_module(random_quant_linear(rng, 256, 128, 4, device=cuda_device, sym=False))
+    x = _x(rng, 4, 256, cuda_device)
+    kw = dict(bits=4, group_size=128)
+    with pytest.raises(TypeError):
+        qmatmul_asym(x.float(), p.qweight, p.scales, p.qzeros, **kw)
+    with pytest.raises(ValueError):
+        qmatmul_asym(x, p.qweight, p.scales, p.qzeros, bits=4, group_size=64)
+    with pytest.raises(ValueError):
+        qmatmul_asym(x, p.qweight, p.scales, p.qzeros[:, :-1].contiguous(), **kw)
+    with pytest.raises(ValueError):
+        qmatmul_asym(x, p.qweight, p.scales, p.qzeros.cpu(), **kw)
+
+
+@pytest.mark.parametrize("sym,kernel", [(True, "qmatmul"), (False, "qmatmul_asym")])
+@pytest.mark.parametrize("M", [1, 300])
+def test_act_order_module_runs_its_kernel(cuda_device, sym, kernel, M):
+    """A balanced act-order module, its rows permuted at post-init on the
+    card: K1 (symmetric) or K3 after the x-column gather, at decode and
+    prefill sizes, against the dequantize-then-matmul reference on the
+    module as loaded (bf16 weights there): 1e-2 relative."""
+    rng = np.random.default_rng(21 + M)
+    K, N = 1024, 256
+    loaded = random_quant_linear(rng, K, N, 4, device=cuda_device, sym=sym,
+                                 perm=rng.permutation(K))
+    p = post_init_module(loaded)
+    assert p.act_perm is not None and p.act_perm.device.type == "cuda"
+    x = _x(rng, M, K, cuda_device)
+    _build.reset_counts()
+    y = registry.qlinear_forward(p, x)
+    assert _build.LAUNCHES == dict.fromkeys(_build.LAUNCHES, 0) | {kernel: 1}
+    ref = qlinear_forward_torch(loaded, x)
+    assert _rel(y, ref) <= 1e-2
+
+
+def test_asym_act_order_facade_runs_k3(cuda_device, tmp_path, monkeypatch):
+    """load -> optimize -> generate of a checkpoint written with
+    ``sym=False, desc_act=True``: K3 four times per layer (fused qkv, o,
+    fused gate_up, down) in the prefill and in every decode step, no K1 or
+    K2; the logits near the plain path's."""
+    write_random_gptq_checkpoint(tmp_path, TINY_LLAMA, seed=1, sym=False, desc_act=True)
+    model = GPTQModel.load(tmp_path).optimize()
+    L, B, T, new = 2, 3, 32, 5
+    ids = np.random.default_rng(2).integers(0, 1024, (B, T))
+    _build.reset_counts()
+    tokens = model.generate(ids, max_new_tokens=new)
+    assert tokens.shape == (B, new) and ((tokens >= 0) & (tokens < 1024)).all()
+    assert _build.LAUNCHES == dict.fromkeys(_build.LAUNCHES, 0) | {"qmatmul_asym": 4 * L * new}
+    ids_t = torch.as_tensor(ids, device=cuda_device)
+    with torch.inference_mode():
+        got = transformer.forward_logits(model.spec, model.params, ids_t, torch.bfloat16)
+        monkeypatch.setattr(registry, "qmatmul_asym", qmatmul_asym_plain)
+        ref = transformer.forward_logits(model.spec, model.params, ids_t, torch.bfloat16)
+    assert torch.isfinite(got).all()
+    assert _rel(got, ref) <= 1e-2
 
 
 def _mlp(rng, D, F, bits, dev):

@@ -15,10 +15,14 @@ from gptqmodel_tpu.ops.qlinear import make_quant_linear, qlinear_forward_xla
 from gptqmodel_tpu.ops.registry import post_init_module as jpost
 from gptqmodel_tpu_torch.convert import convert_quant_linear, to_torch
 from gptqmodel_tpu_torch.ops import _build
-from gptqmodel_tpu_torch.ops.qlinear import dequantize_weight
+from gptqmodel_tpu_torch.ops.qlinear import QuantLinear, dequantize_weight
 from gptqmodel_tpu_torch.ops.qlinear import make_quant_linear as tmake
 from gptqmodel_tpu_torch.ops.qmatmul import qmatmul, qmatmul_plain
-from gptqmodel_tpu_torch.ops.registry import k1_eligible, post_init_module, qlinear_forward
+from gptqmodel_tpu_torch.ops.registry import (
+    kernel_route,
+    post_init_module,
+    qlinear_forward,
+)
 
 
 def _module(rng, out_f, in_f, bits=4, g=128, pow2=False, sym=True):
@@ -121,19 +125,20 @@ def test_qlinear_forward_matches_xla_reference(dtype):
                 "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
     ref = np.asarray(qlinear_forward_xla(jm, jnp.asarray(x, jdt)).astype(jnp.float32))
     tm = _port(jm)
-    assert k1_eligible(tm)
+    assert kernel_route(tm) == "K1"
     got = qlinear_forward(tm, _cpu(x).to(tdt))
     assert got.shape == (2, 3, 384) and got.dtype == tdt
     assert _rel(got.float().numpy(), ref) < (1e-5 if dtype == "float32" else 1e-2)
 
 
 def test_asymmetric_module_runs_reference_on_cpu():
-    """Outside K1's contract (per-group zeros) the CPU runs the dequantize-
-    then-matmul reference: equal to the XLA reference in float32."""
+    """Per-group zeros are outside K1's contract: the module runs K3, whose
+    plain version on the CPU sums exact products in float32, as the
+    dequantize-then-matmul XLA reference does, in another order: 1e-5."""
     rng = np.random.default_rng(8)
     jm = _module(rng, 128, 256, sym=False)
     tm = _port(jm)
-    assert tm.zero_const < 0 and not k1_eligible(tm)
+    assert tm.zero_const < 0 and kernel_route(tm) == "K3"
     x = rng.standard_normal((4, 256)).astype(np.float32)
     ref = np.asarray(qlinear_forward_xla(jm, jnp.asarray(x)))
     np.testing.assert_allclose(qlinear_forward(tm, _cpu(x)).numpy(), ref,
@@ -184,17 +189,49 @@ def test_tensor_off_the_cpu_goes_to_the_kernel(monkeypatch):
                 group_size=128, zero_const=tm.zero_const)
 
 
-@pytest.mark.parametrize("sym,bits,g_idx,kernel", [
-    (False, 4, False, "K3"), (True, 4, True, "K6"),
+def _meta_module(bits, g, sym, K=256, N=128):
+    """A prepared module of a width the port does not pack (3 bits), on the
+    meta device: only its fields are read before the raise."""
+    G = K // g
+    return QuantLinear(
+        qweight=torch.empty((K * bits // 32, N), dtype=torch.int32, device="meta"),
+        qzeros=torch.empty((G, N * bits // 32), dtype=torch.int32, device="meta"),
+        scales=torch.empty((G, N), dtype=torch.float16, device="meta"), g_idx=None,
+        bias=None, bits=bits, group_size=g, in_features=K, out_features=N, sym=sym,
+        zero_const=2.0 ** (bits - 1) if sym else -1.0)
+
+
+@pytest.mark.parametrize("sym,bits,g,act_order,kernel", [
+    (False, 4, 128, False, "K3"), (True, 4, 128, True, "K1"), (False, 4, 128, True, "K3"),
+    (True, 4, 32, False, "K6"), (False, 4, 32, False, "K6"),
+    (True, 3, 128, False, "K4"), (False, 3, 128, False, "K5"),
 ])
-def test_module_outside_k1_raises_off_the_cpu(monkeypatch, sym, bits, g_idx, kernel):
-    """Outside K1's contract the CPU runs the reference; any other device
-    raises NotImplementedError naming the TPU kernel a later slice ports."""
+def test_module_outside_k1_raises_off_the_cpu(monkeypatch, sym, bits, g, act_order, kernel):
+    """Off the CPU each module takes the JAX registry's route. Asymmetric
+    modules run K3 and balanced act-order ones K1 or K3 after the gather:
+    here they ask for the kernel library, which is refused, and count no
+    launch. A module whose kernel a later slice ports raises
+    NotImplementedError naming that TPU kernel: K6 for groups of 32, K4 or
+    K5 for 3 bits."""
     _refuse_build(monkeypatch)
-    tm = _port(_module(np.random.default_rng(12), 128, 256, bits=bits, sym=sym))
-    if g_idx:
-        tm.g_idx = torch.from_numpy((np.arange(256) * 7 % 256 // 128).astype(np.int32))
-    assert not k1_eligible(tm)
+    if bits == 3:
+        tm = _meta_module(bits, g, sym)
+    else:
+        rng = np.random.default_rng(12)
+        g_idx = (np.arange(256) * 7 % 256 // g).astype(np.int32) if act_order else None
+        jm = _module(rng, 128, 256, bits=bits, g=g, sym=sym)
+        if g_idx is not None:
+            jm.g_idx = g_idx
+        tm = _port(jm).to("meta")
+        assert (tm.act_perm is not None) == act_order
     x = torch.empty((4, 256), dtype=torch.bfloat16, device="meta")
-    with pytest.raises(NotImplementedError, match=kernel):
-        qlinear_forward(tm.to("meta"), x)
+    before = dict(_build.LAUNCHES)
+    if kernel in ("K1", "K3"):
+        assert kernel_route(tm) == kernel
+        with pytest.raises(RuntimeError, match="kernel library"):
+            qlinear_forward(tm, x)
+    else:
+        assert kernel_route(tm) is None
+        with pytest.raises(NotImplementedError, match=kernel):
+            qlinear_forward(tm, x)
+    assert _build.LAUNCHES == before
