@@ -32,7 +32,15 @@ Phases, each printing JSON lines on stdout:
    K11 and K12 (``qmoe_mlp_matmul_dyn``, ``qmoe_mlp_matmul``) at N = 8 and
    128, equal to each other, and K13 (``qmoe_matmul``) on gate|up and down
    at N = 8 and 128; their bound counts the distinct routed experts' words
-   and scales, once each, and the routed rows' operations.
+   and scales, once each, and the routed rows' operations. Then K6
+   (``qmm``, groups of 32 and 64) at the same four projections for M = 1, 8
+   and 256, 4-bit, symmetric and with random zeros per group and column, and
+   at qkv, M = 8 at 2 and 8 bits, twice each for equal bits, with
+   ``torch._weight_int4pack_mm`` at the same group size as the yardstick
+   (its bound counts the zeros only where they are read), and the reference
+   route (dequantize, then ``torch.matmul``) at M = 1024, timed for the
+   record; and K7 (``qmatmul_fused``) at K1's projections and sizes, with K1
+   and ``torch._weight_int4pack_mm`` timed beside it.
 3. ``slice``: a GPTQ v1 checkpoint at Llama-3-8B's published widths (4-bit,
    symmetric, group 128, dense lm_head; random weights from a seed, about
    5.7 GB) is written to a temporary directory under ``build/``, then
@@ -44,7 +52,11 @@ Phases, each printing JSON lines on stdout:
    ``torch.profiler`` for the device's busy share.
 4. ``compare``: the first 2 layers of that model at full width, the kernel
    path's logits against the plain versions' on the card, teacher-forced.
-5. ``asym-act-slice``: the same widths, all 32 layers, written with
+5. ``fused``: that model again under ``GPTQ_TPU_RT_FUSED=1``:
+   ``generate(ids, 16)`` at all 32 layers with 4 K7 per layer in the prefill
+   and 2 K7 and 1 K2 per layer in each decode step asserted (no K1), the
+   served path timed as in ``slice``, and the 2-layer compare within 1e-2.
+6. ``asym-act-slice``: the same widths, all 32 layers, written with
    ``sym=False, desc_act=True`` (random zeros per group and column, one
    act-order permutation per layer input), through ``GPTQModel.load(dir)
    .optimize().generate(ids, 64)`` at B = 8, T = 128, bf16 KV: post-init
@@ -54,11 +66,22 @@ Phases, each printing JSON lines on stdout:
    in every decode step, no K1 or K2, no synchronizing call in a step.
    Printed: load s and peak memory, prefill ms, decode ms per step, device
    ms per step by kernel (the gathers' share too) and the busy share.
-6. ``compare-act``: the kernel path against the plain path over 2 layers,
+7. ``compare-act``: the kernel path against the plain path over 2 layers,
    as ``compare``, for that checkpoint (K3) and for a 2-layer one written
    with ``sym=True, desc_act=True`` (K1 after the gather, no K3): logits
    within 1e-2.
-7. ``quantize``: a random bf16 checkpoint at Llama-3-8B's published widths
+8. ``g32-slice``: the same widths, all 32 layers, written at group 32
+   (4-bit, symmetric, drawn on the card, about 6.1 GB), through
+   ``GPTQModel.load(dir).optimize().generate(ids, 64)`` at B = 8, T = 128,
+   bf16 KV. Asserted: the prefill's 1024 rows on the counted reference
+   route (4 per layer, no K6), 4 K6 per layer in every decode step, no K1,
+   K2 or K3, no synchronizing call in a step. Printed as ``asym-act-slice``.
+9. ``compare-g32``: its first 2 layers, and those of a 2-layer checkpoint at
+   group 64 with ``sym=False``, kernel path against plain path over a
+   prefill and 8 decode steps of B = 8 rows (where K6 runs; asserted):
+   logits within 1e-2. The same over all 32 layers of the first is
+   recorded, its launch counts asserted and its logits not held to a limit.
+10. ``quantize``: a random bf16 checkpoint at Llama-3-8B's published widths
    and 16 of its 32 layers (8 GB) goes through ``GPTQModel.load(dir,
    QuantizeConfig(bits=4, group_size=128, sym=True))``, ``.quantize(ids)``
    on 128 seeded rows of 512 tokens at batch 4, and ``.save(out)``; then
@@ -67,15 +90,18 @@ Phases, each printing JSON lines on stdout:
    K1/K2 counts of a prefill and 15 decode steps. Printed: seconds in all
    and per layer (forward, solve, pack), peak device memory, the losses'
    range and the saved bytes.
-8. ``compare-quantize``: layer 0 of that checkpoint quantized again, once
+11. ``compare-quantize``: layer 0 of that checkpoint quantized again, once
    with K8 swapped for its plain version and once through K9
    (``GPTQ_TPU_SOLVER=pallas``): per module, codes within 2e-3 of the K8
    run and the loss within 1e-3.
-9. ``quantize-act``: its first 2 layers through ``QuantizeConfig(sym=False,
+12. ``quantize-act``: its first 2 layers through ``QuantizeConfig(sym=False,
    desc_act=True)`` on K8, ``save``; ``GPTQModel.load`` of the result saved
    again must give the same bytes; then ``optimize().generate(ids, 8)`` on
    K3 alone.
-10. ``moe-slice``: a GPTQ v1 checkpoint at Qwen3-30B-A3B's published widths
+13. ``quantize-g32``: the same through ``QuantizeConfig(group_size=32)``:
+   4 K8 per layer, the re-save byte-equal, and ``generate(ids, 8)`` with
+   the prefill on the reference route and every decode step on K6 alone.
+14. ``moe-slice``: a GPTQ v1 checkpoint at Qwen3-30B-A3B's published widths
    and all 48 layers (4-bit, symmetric, group 128, dense router and
    lm_head; random weights drawn on the card from a seed, about 17 GB) is
    written under ``build/``, then ``GPTQModel.load(dir).optimize()
@@ -83,14 +109,14 @@ Phases, each printing JSON lines on stdout:
    and 1 K10 per layer in the prefill and in every decode step, no other
    kernel. Printed: load s and peak memory, device memory, prefill ms,
    decode ms per step, tokens/s and the device's busy share.
-11. ``compare-moe``: its first 2 layers, the kernel path against the plain
+15. ``compare-moe``: its first 2 layers, the kernel path against the plain
    versions, teacher-forced: the plain path is fed the kernel path's tokens
    and follows its routes, experts and weights (the router's bf16 logits
    flip an expert at a near tie, or a weight by an ulp, and move a token's
    logits more than the kernels do); logits within 1e-2, the count of
    (token, layer) routes where the plain path's own router chose other
    experts, and the largest change of its probabilities.
-12. ``moe-routes``: layer 0 stacked again under each ``GPTQ_TPU_QMOE_*``
+16. ``moe-routes``: layer 0 stacked again under each ``GPTQ_TPU_QMOE_*``
    setting and run at N = 8 and 1024 tokens: K10 (rt, the default; ic with
    ``RT=0``), K11, K12, K13 and the dense fallback; each within 2e-2 of the
    default, K10 (ic) within 2e-3 of K11, K11 equal to K12, and the kernel
@@ -101,11 +127,13 @@ Then the card's name and power limit, the ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Each record of the kernels line
 names its units: ``launches`` counts a whole run of the main path
 (``launches_per``: K1 and K2 the generate run, K3 the asym-act-slice
-generate run, K8 the quantize run, K9 the one-layer quantize run through
+generate run, K6 the g32-slice generate run, K7 the fused generate run, K8
+the quantize run, K9 the one-layer quantize run through
 ``GPTQ_TPU_SOLVER=pallas``, K10 the moe generate run, K11-K13 the
-moe-routes run), and the times are per ``ms_per``: K1, K2 and K3 one decode
-step at B = 8 (K1 over qkv and o of every layer, K2 over every layer's MLP,
-K3 over qkv, o, gate_up and down of every layer), K8 and K9 one quantized
+moe-routes run), and the times are per ``ms_per``: K1, K2, K3, K6 and K7
+one decode step at B = 8 (K1 and K7 over qkv and o of every layer, K2 over
+every layer's MLP, K3 and K6 over qkv, o, gate_up and down of every layer,
+K6 at group 32, symmetric), K8 and K9 one quantized
 layer (K8 one solve of each group, K9 each group's 128-column blocks), K10
 one decode step at B = 8 over the 48 MoE layers, K11-K13 one MoE layer at
 N = 8 tokens (K13 gate|up and down). A failed check raises and exits
@@ -147,6 +175,18 @@ K2_MS = (1, 8, 64)
 K1_TOL, K2_TOL = 1e-3, 2e-3
 # K3 as K1: z*s is exact in f32 too
 K3_TOL = K1_TOL
+# K6 at every projection for M = 1, 8 and 256 (the most rows its route
+# gives it), 4-bit at groups of 32 and 64, symmetric and not; 2- and 8-bit
+# at qkv, M = 8, group 32. K7 at K1's projections and sizes.
+K6_MS = (1, 8, 256)
+K6_GROUPS = ((32, True), (32, False), (64, True), (64, False))
+K6_EXTRA_BITS = {"qkv": (2, 8)}
+K6_REF_M = 1024  # the prefill's rows, on the reference route: timed for the record
+# K6 and K7 as K1: the same weights in both (K6 bf16(bf16(c - z) * bf16(s)),
+# K7 bf16(c * s)), exact products, f32 sums in another order
+K6_TOL = K7_TOL = K1_TOL
+# the fused phase: the llama slice's model under GPTQ_TPU_RT_FUSED=1
+FUSED_NEW = 16
 # logits after 2 layers: one-ulp bf16 flips of the products, carried on
 SLICE_TOL = 1e-2
 # K8 against its plain version: the JAX package's tolerances for its K8
@@ -159,8 +199,9 @@ SOLVE_SHAPES = {"qkv": (6144, 4096), "o": (4096, 4096), "gate_up": (28672, 4096)
 # whole script, the 48-layer MoE slice included, stays near 10 minutes
 QUANT_LAYERS = 16
 Q_ROWS, Q_T, Q_BATCH = 128, 512, 4  # calibration: seeded token ids
-# quantize-act: the quantize phase's checkpoint, its first 2 layers, through
-# QuantizeConfig(sym=False, desc_act=True), then 8 generated tokens on K3
+# quantize-act and quantize-g32: the quantize phase's checkpoint, its first 2
+# layers, through QuantizeConfig(sym=False, desc_act=True) or
+# QuantizeConfig(group_size=32), then 8 generated tokens on K3 or K6
 QUANT_ACT_LAYERS, QUANT_ACT_NEW = 2, 8
 GEN_B, GEN_T, GEN_NEW = 8, 128, 16  # the quantized model's generate
 # K10 at decode B = 1, B = 8 and the prefill of 8 x 128 tokens; K11-K13 at
@@ -271,13 +312,14 @@ def ptxas_summary(lines_by_source: dict) -> dict:
 @contextlib.contextmanager
 def plain_versions():
     """Send the model's quantized products through the kernels' plain
-    versions, on the card, for the reference of ``compare`` and
-    ``compare-moe``. The package has no such switch; this swaps the names
+    versions, on the card, for the reference of the compare phases. The package has no such switch; this swaps the names
     the registry and the MoE wrappers call, and restores them."""
     from gptqmodel_tpu_torch.ops import qmatmul as k1, qmlp as k2, qmoe, registry
 
     swaps = [(registry, "qmatmul", k1.qmatmul_plain),
              (registry, "qmatmul_asym", k1.qmatmul_asym_plain),
+             (registry, "qmatmul_fused", k1.qmatmul_fused_plain),
+             (registry, "qmm", k1.qmm_plain),
              (registry, "qmlp", k2.qmlp_plain)] + [
         (qmoe, name, getattr(qmoe, name + "_plain"))
         for name in ("qmoe_mlp_e2e", "qmoe_mlp_matmul_dyn", "qmoe_mlp_matmul", "qmoe_matmul")]
@@ -595,7 +637,8 @@ def compare_layers(spec, params, ids, layers: int = 2, steps: int = 8) -> dict:
     path's logits over a prefill of ``ids`` and ``steps`` greedy decode
     steps, against the plain versions' on the card, teacher-forced on the
     kernel path's tokens. Returns the record and the kernel path's launch
-    counts; asserts that the plain path launches nothing."""
+    counts; asserts that the plain path launches no kernel (both count the
+    same reference-route products)."""
     import torch
 
     from gptqmodel_tpu_torch.inference.engine import (
@@ -630,7 +673,8 @@ def compare_layers(spec, params, ids, layers: int = 2, steps: int = 8) -> dict:
     counts = dict(_build.LAUNCHES)
     with plain_versions():
         ref, ref_toks = run(forced=got_toks)
-    require(dict(_build.LAUNCHES) == counts, "the plain path launched a kernel")
+    require(dict(_build.LAUNCHES) == counts | {"reference": 2 * counts["reference"]},
+            "the plain path launched a kernel")
     require(bool(torch.isfinite(got).all()), f"non-finite logits at {layers} layers")
     rel = float((got - ref).norm() / ref.norm())
     agree = float(torch.stack([a == b for a, b in zip(got_toks, ref_toks)]).float().mean())
@@ -726,13 +770,18 @@ def act_phases(root: Path, card: str) -> dict:
     return out
 
 
-def quantize_act_phase(root: Path, state: dict, card: str) -> dict:
-    """The quantize phase's checkpoint, its first ``QUANT_ACT_LAYERS`` layers,
-    through ``GPTQModel.load(dir, QuantizeConfig(sym=False, desc_act=True))``,
-    ``.quantize(ids)`` on K8 and ``.save(out)``; then ``GPTQModel.load(out)``
-    (its rows permuted into group order at post-init) is saved again, which
-    must give the first save's bytes, and ``.optimize().generate(ids, 8)``
-    runs every projection on K3."""
+def requantize_phase(root: Path, state: dict, card: str, phase: str, options: dict,
+                     served_ok, gen_counts: dict) -> dict:
+    """The quantize phase's checkpoint, its first ``QUANT_ACT_LAYERS``
+    layers, through ``GPTQModel.load(dir, QuantizeConfig(bits=4,
+    group_size=128, sym=True, **options))``, ``.quantize(ids)`` on K8 and
+    ``.save(out)``; then ``GPTQModel.load(out)`` is saved again, which must
+    give the first save's bytes, ``served_ok(model)`` checks its prepared
+    modules, and ``.optimize().generate(ids, 8)`` must launch
+    ``gen_counts``. quantize-act: ``sym=False, desc_act=True``, rows
+    permuted into group order at post-init, every projection on K3.
+    quantize-g32: ``group_size=32``, the prefill on the reference route and
+    every decode projection on K6."""
     import torch
 
     from gptqmodel_tpu_torch import GPTQModel, QuantizeConfig
@@ -740,53 +789,77 @@ def quantize_act_phase(root: Path, state: dict, card: str) -> dict:
 
     layers, new = QUANT_ACT_LAYERS, QUANT_ACT_NEW
     fp = root / f"fp-{layers}-layers"
-    fp.mkdir()
-    for f in state["fp_dir"].iterdir():  # the same shards, a config of fewer layers
-        if f.name != "config.json":
-            (fp / f.name).symlink_to(f)
-    cfg = json.loads((state["fp_dir"] / "config.json").read_text())
-    (fp / "config.json").write_text(json.dumps(dict(cfg, num_hidden_layers=layers)))
+    if not fp.exists():
+        fp.mkdir()
+        for f in state["fp_dir"].iterdir():  # the same shards, a config of fewer layers
+            if f.name != "config.json":
+                (fp / f.name).symlink_to(f)
+        cfg = json.loads((state["fp_dir"] / "config.json").read_text())
+        (fp / "config.json").write_text(json.dumps(dict(cfg, num_hidden_layers=layers)))
     none = dict.fromkeys(_build.LAUNCHES, 0)
-    model = GPTQModel.load(fp, QuantizeConfig(bits=4, group_size=128, sym=False,
-                                              desc_act=True))
+    model = GPTQModel.load(fp, QuantizeConfig(**{"bits": 4, "group_size": 128, "sym": True,
+                                                 **options}))
     _build.reset_counts()
     t0 = time.perf_counter()
     qlog = model.quantize(state["ids"], batch_size=Q_BATCH)
     torch.cuda.synchronize()
     quantize_s = time.perf_counter() - t0
     counts = dict(_build.LAUNCHES)
-    require(counts == none | {"gptq_whole_solve": 4 * layers}, f"quantize-act launched {counts}")
+    require(counts == none | {"gptq_whole_solve": 4 * layers}, f"{phase} launched {counts}")
     require(not any(r["fallback"] for r in qlog) and all(math.isfinite(r["loss"]) for r in qlog),
-            "quantize-act: a fallback or a non-finite loss")
-    first, again = root / "act-quantized", root / "act-saved-again"
+            f"{phase}: a fallback or a non-finite loss")
+    first, again = root / f"{phase}-quantized", root / f"{phase}-saved-again"
     model.save(first)
     del model
     torch.cuda.empty_cache()
     served = GPTQModel.load(first)
-    require(all(m.act_perm is not None for lp in served.params["model"]["layers"]
-                for k in ("self_attn", "mlp") for m in lp[k].values()),
-            "quantize-act: a module loaded without act_perm")
+    require(served_ok(served), f"{phase}: a module loaded outside its route")
     served.save(again)
     served.optimize()
     _build.reset_counts()
     tokens = served.generate(state["ids"][:GEN_B, :GEN_T], max_new_tokens=new)
-    gen_counts = dict(_build.LAUNCHES)
-    require(gen_counts == none | {"qmatmul_asym": 4 * layers * new},
-            f"quantize-act generate launched {gen_counts}")
+    got = dict(_build.LAUNCHES)
+    require(got == none | gen_counts, f"{phase} generate launched {got}")
     require(tokens.shape == (GEN_B, new), f"tokens of shape {tokens.shape}")
+    require(((tokens >= 0) & (tokens < served.spec.vocab_size)).all(),
+            "token out of the vocabulary")
     del served
     torch.cuda.empty_cache()
     files = sorted(f.name for f in first.glob("model*.safetensors*"))
     equal = files == sorted(f.name for f in again.glob("model*.safetensors*")) and all(
         (first / f).read_bytes() == (again / f).read_bytes() for f in files)
-    rec = {"phase": "quantize-act", "gpu": card, "layers": layers, "sym": False,
-           "desc_act": True, "quantize_s": quantize_s, "quantize_counts": counts,
+    rec = {"phase": phase, "gpu": card, "layers": layers, **options,
+           "quantize_s": quantize_s, "quantize_counts": counts,
            "loss_min": min(r["loss"] for r in qlog), "loss_max": max(r["loss"] for r in qlog),
-           "generate_counts": gen_counts, "tokens_first_row": tokens[0].tolist(),
+           "generate_counts": got, "tokens_first_row": tokens[0].tolist(),
            "saved_files": files, "resave_byte_equal": equal}
     emit(rec)
-    require(equal, "quantize-act: the save after load differs from the first save")
+    require(equal, f"{phase}: the save after load differs from the first save")
     return rec
+
+
+def quantize_act_phase(root: Path, state: dict, card: str) -> dict:
+    """quantize-act (``requantize_phase``): K3 alone at generate."""
+    layers, new = QUANT_ACT_LAYERS, QUANT_ACT_NEW
+    return requantize_phase(
+        root, state, card, "quantize-act", {"sym": False, "desc_act": True},
+        lambda m: all(q.act_perm is not None for lp in m.params["model"]["layers"]
+                      for k in ("self_attn", "mlp") for q in lp[k].values()),
+        {"qmatmul_asym": 4 * layers * new})
+
+
+def quantize_g32_phase(root: Path, state: dict, card: str) -> dict:
+    """quantize-g32 (``requantize_phase``): the prefill's GEN_B x GEN_T rows
+    on the reference route, every decode step on K6 alone."""
+    from gptqmodel_tpu_torch.ops.registry import kernel_route
+
+    layers, new = QUANT_ACT_LAYERS, QUANT_ACT_NEW
+    return requantize_phase(
+        root, state, card, "quantize-g32", {"group_size": 32},
+        lambda m: all(q.group_size == 32 and kernel_route(q) == "K6"
+                      for lp in m.params["model"]["layers"]
+                      for k in ("self_attn", "mlp") for q in lp[k].values()),
+        {"reference": 4 * layers, "qmm": 4 * layers * (new - 1)})
 
 
 def count_dense_fallback():
@@ -1226,6 +1299,297 @@ def k3_kernel_cases(dev, rng, shapes: dict) -> list:
     return cases
 
 
+def k6_kernel_cases(dev, rng, shapes: dict) -> list:
+    """K6 against its plain version at Llama-3-8B's projections (``shapes``:
+    proj -> K, N): 4-bit at ``K6_MS`` for each of ``K6_GROUPS``, 2- and
+    8-bit at the sizes ``K6_EXTRA_BITS`` names (group 32, symmetric); two
+    runs each for equal bits, the weights rotated through copies past the
+    L2, and ``torch._weight_int4pack_mm`` at the same group size, the zeros
+    folded into its scales-and-zeros, as the yardstick at 4 bits. Then, per
+    projection at group 32, the route that the prefill's ``K6_REF_M`` rows
+    take (dequantize to bf16, then the product), timed for the record."""
+    import torch
+
+    from gptqmodel_tpu_torch.ops import _build
+    from gptqmodel_tpu_torch.ops.pack import unpack_qzeros
+    from gptqmodel_tpu_torch.ops.qlinear import qlinear_forward_torch
+    from gptqmodel_tpu_torch.ops.qmatmul import qmm, qmm_plain
+    from gptqmodel_tpu_torch.ops.registry import kernel_route, post_init_module
+    from gptqmodel_tpu_torch.utils.testing import random_quant_linear
+
+    has_int4pack, library = int4pack_library()
+    cases = []
+    for proj, (K, N) in shapes.items():
+        variants = [(4, g, sym) for g, sym in K6_GROUPS]
+        variants += [(bits, 32, True) for bits in K6_EXTRA_BITS.get(proj, ())]
+        for bits, g, sym in variants:
+            base = post_init_module(random_quant_linear(rng, K, N, bits, g, device=dev, sym=sym))
+            require(kernel_route(base) == "K6" and (base.zero_const >= 0) == sym,
+                    f"K6 case {proj} {bits}-bit g={g} sym={sym} off K6's route")
+            # a symmetric module's zeros are not read: its one zero point is
+            wbytes = base.qweight.nbytes + base.scales.nbytes + (0 if sym else base.qzeros.nbytes)
+            mods = [base] + [dataclasses.replace(base, qweight=base.qweight.clone(),
+                                                 scales=base.scales.clone(),
+                                                 qzeros=base.qzeros.clone())
+                             for _ in range(copies_for(wbytes) - 1)]
+            zeros = lambda m: m.zero_const if sym else unpack_qzeros(m.qzeros, 4).float()
+            lib_w = ([int4pack(m.qweight, m.scales, zeros(m)) for m in mods]
+                     if has_int4pack and bits == 4 else None)
+            kw = dict(bits=bits, group_size=g, zero_const=base.zero_const)
+            ops = lambda i: (x, mods[i].qweight, mods[i].scales, mods[i].qzeros)
+            for M in (K6_MS if bits == 4 else (B,)):
+                x = torch.from_numpy(rng.standard_normal((M, K), dtype=np.float32)).to(
+                    dev).to(torch.bfloat16)
+                before = _build.LAUNCHES["qmm"]
+                y, y2 = qmm(*ops(0), **kw), qmm(*ops(0), **kw)
+                ref = qmm_plain(*ops(0), **kw)
+                torch.cuda.synchronize()
+                require(_build.LAUNCHES["qmm"] == before + 2, "K6 did not launch")
+                identical = torch.equal(y, y2)
+                rel, mx = errors(y, ref)
+                k = timed(lambda i: qmm(*ops(i), **kw), len(mods))
+                pl_ = timed(lambda i: qmm_plain(*ops(i), **kw), len(mods), budget_ms=100.0)
+                lib, lib_rel = None, None
+                if lib_w is not None:
+                    lib = timed(lambda i: torch._weight_int4pack_mm(x, lib_w[i][0], g,
+                                                                    lib_w[i][1]), len(mods))
+                    lib_rel = errors(torch._weight_int4pack_mm(x, lib_w[0][0], g, lib_w[0][1]),
+                                     ref)[0]
+                b_ms, b_by = bound(x.nbytes + wbytes + y.nbytes, 2.0 * M * N * K)
+                case = {"kernel": "qmm", "proj": proj, "bits": bits, "group_size": g,
+                        "sym": sym, "M": M, "K": K, "N": N, "rel_err": rel, "max_abs_err": mx,
+                        "identical_runs": identical, "ms": k["ms"], "wall_ms": k["wall_ms"],
+                        "plain_ms": pl_["ms"], "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": lib["ms"] if lib else None,
+                        "library": (library if bits == 4 else
+                                    "null: torch._weight_int4pack_mm takes 4-bit weights"),
+                        "library_rel_err": lib_rel, "plain_wall_ms": pl_["wall_ms"],
+                        "library_wall_ms": lib["wall_ms"] if lib else None,
+                        "weight_copies": len(mods)}
+                cases.append(case)
+                emit({"phase": "kernels", **case})
+                require(rel <= K6_TOL, f"K6 {proj} {bits}-bit g={g} sym={sym} M={M}: "
+                        f"rel {rel} > {K6_TOL}")
+                require(identical, f"K6 {proj} {bits}-bit g={g} sym={sym} M={M}: two runs differ")
+            if (bits, g, sym) == (4, 32, True):
+                x = torch.from_numpy(rng.standard_normal((K6_REF_M, K), dtype=np.float32)).to(
+                    dev).to(torch.bfloat16)
+                r = timed(lambda i: qlinear_forward_torch(mods[i], x), len(mods),
+                          budget_ms=100.0)
+                b_ms, b_by = bound(x.nbytes + wbytes + 2 * K6_REF_M * N,
+                                   2.0 * K6_REF_M * N * K)
+                case = {"kernel": "reference", "proj": proj, "bits": 4, "group_size": g,
+                        "sym": True, "M": K6_REF_M, "K": K, "N": N, "ms": r["ms"],
+                        "wall_ms": r["wall_ms"], "bound_ms": b_ms, "bound_by": b_by,
+                        "route": "dequantize to bf16, then torch.matmul (no kernel of the port)"}
+                cases.append(case)
+                emit({"phase": "kernels", **case})
+            del base, mods, lib_w
+    torch.cuda.empty_cache()
+    return cases
+
+
+def k7_kernel_cases(dev, rng, shapes: dict) -> list:
+    """K7 against its plain version at K1's projections and sizes (4-bit,
+    group 128, one zero point), twice each for equal bits, the weights
+    rotated through copies past the L2; K1 and ``torch._weight_int4pack_mm``
+    timed in the same call on the same weights."""
+    import torch
+
+    from gptqmodel_tpu_torch.ops import _build
+    from gptqmodel_tpu_torch.ops.qmatmul import qmatmul, qmatmul_fused, qmatmul_fused_plain
+    from gptqmodel_tpu_torch.ops.registry import post_init_module
+    from gptqmodel_tpu_torch.utils.testing import random_quant_linear
+
+    has_int4pack, library = int4pack_library()
+    cases = []
+    for proj, (K, N) in shapes.items():
+        base = post_init_module(random_quant_linear(rng, K, N, 4, device=dev))
+        wbytes = base.qweight.nbytes + base.scales.nbytes
+        mods = [base] + [dataclasses.replace(base, qweight=base.qweight.clone(),
+                                             scales=base.scales.clone())
+                         for _ in range(copies_for(wbytes) - 1)]
+        lib_w = ([int4pack(m.qweight, m.scales, base.zero_const) for m in mods]
+                 if has_int4pack else None)
+        kw = dict(bits=4, group_size=128, zero_const=base.zero_const)
+        ops = lambda i: (x, mods[i].qweight, mods[i].scales)
+        for M in K1_MS:
+            x = torch.from_numpy(rng.standard_normal((M, K), dtype=np.float32)).to(dev).to(
+                torch.bfloat16)
+            before = _build.LAUNCHES["qmatmul_fused"]
+            y, y2 = qmatmul_fused(*ops(0), **kw), qmatmul_fused(*ops(0), **kw)
+            ref = qmatmul_fused_plain(*ops(0), **kw)
+            torch.cuda.synchronize()
+            require(_build.LAUNCHES["qmatmul_fused"] == before + 2, "K7 did not launch")
+            identical = torch.equal(y, y2)
+            rel, mx = errors(y, ref)
+            k = timed(lambda i: qmatmul_fused(*ops(i), **kw), len(mods))
+            k1 = timed(lambda i: qmatmul(*ops(i), **kw), len(mods))
+            pl_ = timed(lambda i: qmatmul_fused_plain(*ops(i), **kw), len(mods),
+                        budget_ms=100.0)
+            lib = None
+            if lib_w is not None:
+                lib = timed(lambda i: torch._weight_int4pack_mm(x, lib_w[i][0], 128,
+                                                                lib_w[i][1]), len(mods))
+            b_ms, b_by = bound(x.nbytes + wbytes + y.nbytes, 2.0 * M * N * K)
+            case = {"kernel": "qmatmul_fused", "proj": proj, "M": M, "K": K, "N": N,
+                    "rel_err": rel, "max_abs_err": mx, "identical_runs": identical,
+                    "ms": k["ms"], "wall_ms": k["wall_ms"], "k1_ms": k1["ms"],
+                    "plain_ms": pl_["ms"], "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": lib["ms"] if lib else None, "library": library,
+                    "plain_wall_ms": pl_["wall_ms"], "weight_copies": len(mods)}
+            cases.append(case)
+            emit({"phase": "kernels", **case})
+            require(rel <= K7_TOL, f"K7 {proj} M={M}: rel {rel} > {K7_TOL}")
+            require(identical, f"K7 {proj} M={M}: two runs differ")
+        del base, mods, lib_w
+    torch.cuda.empty_cache()
+    return cases
+
+
+def g32_phases(root: Path, card: str) -> dict:
+    """``g32-slice`` and ``compare-g32``: a GPTQ checkpoint at Llama-3-8B's
+    published widths and all 32 layers at group 32 (4-bit, symmetric, dense
+    lm_head; random weights drawn on the card from the seed, about 6.1 GB)
+    written under ``root``, through ``GPTQModel.load(dir).optimize()
+    .generate(ids, 64)`` at B = 8, T = 128, bf16 KV; then its first 2 layers
+    and those of a 2-layer checkpoint at group 64 with ``sym=False``, each
+    kernel path against the plain path over a prefill and 8 decode steps of
+    B = 8 rows (the prefill's 1024 rows take the reference route in both, so
+    the decode steps are what holds K6 to its plain version)."""
+    import torch
+
+    from gptqmodel_tpu_torch import GPTQModel
+    from gptqmodel_tpu_torch.ops import _build
+    from gptqmodel_tpu_torch.ops.registry import kernel_route
+    from gptqmodel_tpu_torch.utils.testing import LLAMA3_8B_CONFIG, write_random_gptq_checkpoint
+
+    cfg = LLAMA3_8B_CONFIG
+    L = cfg["num_hidden_layers"]
+    none = dict.fromkeys(_build.LAUNCHES, 0)
+    prefill = none | {"reference": 4 * L}  # B x T = 1024 rows: above PALLAS_MAX_M
+    step = none | {"qmm": 4 * L}  # fused qkv, o, fused gate_up, down
+    ids = np.random.default_rng([SEED, 8]).integers(0, cfg["vocab_size"], (B, T))
+
+    def projections(model):
+        return [m for lp in model.params["model"]["layers"]
+                for m in (*lp["self_attn"].values(), *lp["mlp"].values())]
+
+    with tempfile.TemporaryDirectory(prefix="llama3-8b-g32-", dir=root) as ckpt:
+        t0 = time.perf_counter()
+        n_bytes = write_random_gptq_checkpoint(ckpt, cfg, seed=SEED, group_size=32,
+                                               device="cuda")
+        write_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = GPTQModel.load(ckpt)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        load_peak = torch.cuda.max_memory_allocated()
+    model.optimize()
+    spec, params = model.spec, model.params
+    lps = params["model"]["layers"]
+    require(model.device.type == "cuda" and len(lps) == L and all(
+        set(lp["self_attn"]) == {"qkv_proj", "o_proj"}
+        and set(lp["mlp"]) == {"gate_up_proj", "down_proj"} for lp in lps),
+        "g32-slice: q/k/v or gate/up left unfused, or an MLP marked for K2")
+    require(all(m.group_size == 32 and m.zero_const >= 0 and kernel_route(m) == "K6"
+                for m in projections(model)), "g32-slice: a module off K6's route")
+    weights_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    tokens = model.generate(ids, max_new_tokens=NEW)
+    generate_s = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)
+    want = {k: prefill[k] + (NEW - 1) * step[k] for k in step}
+    require(counts == want, f"g32-slice generate launched {counts}, expected {want}")
+    require(tokens.shape == (B, NEW) and ((tokens >= 0) & (tokens < spec.vocab_size)).all(),
+            f"g32-slice: tokens {tokens.shape}")
+    timing = serve_timing(spec, params, ids, False, prefill, step)
+    out = {}
+    out["g32_slice"] = rec = {
+        "phase": "g32-slice", "gpu": card, "layers": L, "B": B, "T": T, "new_tokens": NEW,
+        "kv": "bf16", "options": {"bits": 4, "group_size": 32, "sym": True},
+        "checkpoint_bytes": n_bytes, "write_s": write_s, "load_s": load_s,
+        "load_peak_mem_bytes": load_peak, "weights_mem_bytes": weights_mem,
+        "generate_s": generate_s, "generate_counts": counts,
+        "generate_peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "prefill_counts": prefill, "decode_counts_per_step": step,
+        "distinct_tokens_first_row": len(set(tokens[0].tolist())),
+        "tokens_first_row": tokens[0].tolist(), **timing}
+    emit(rec)
+
+    cmp = {"sym_g32": compare_layers(spec, params, ids)}
+    # the same at all 32 layers, for the record: whether the plain path
+    # picks the kernel path's greedy tokens through the whole model
+    full = compare_layers(spec, params, ids, layers=L)
+    require(full["counts"] == none | {"reference": 4 * L, "qmm": 4 * L * (full["positions"] - 1)},
+            f"compare-g32 at {L} layers launched {full['counts']}")
+    del model, params, lps
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="llama3-8b-asym-g64-", dir=root) as ckpt:
+        write_random_gptq_checkpoint(ckpt, dict(cfg, num_hidden_layers=2), seed=SEED + 2,
+                                     group_size=64, sym=False, device="cuda")
+        model = GPTQModel.load(ckpt).optimize()
+    require(all(m.group_size == 64 and m.zero_const < 0 and kernel_route(m) == "K6"
+                for m in projections(model)), "compare-g32: a g64 module off K6's route")
+    cmp["asym_g64"] = compare_layers(model.spec, model.params, ids)
+    del model
+    torch.cuda.empty_cache()
+    out["compare_g32"] = rec = {"phase": "compare-g32", "gpu": card, **cmp,
+                                "all_layers_unchecked": full}
+    emit(rec)
+    for name, c in cmp.items():
+        steps = c["positions"] - 1
+        require(c["counts"] == none | {"reference": 4 * 2, "qmm": 4 * 2 * steps},
+                f"compare-g32 {name} launched {c['counts']}: expected K6 at every step")
+        require(c["logits_rel_err"] <= SLICE_TOL,
+                f"compare-g32 {name}: rel {c['logits_rel_err']} > {SLICE_TOL}")
+    return out
+
+
+def fused_phase(model, ids, card: str) -> dict:
+    """``fused``: the llama slice's model again under ``GPTQ_TPU_RT_FUSED=1``:
+    ``generate(ids, FUSED_NEW)`` at all its layers (4 K7 per layer in the
+    prefill, 2 K7 and 1 K2 per layer in each decode step, no K1), the
+    served path timed as in ``slice``, and its first 2 layers, kernel path
+    against plain path, within 1e-2."""
+    from gptqmodel_tpu_torch.ops import _build
+
+    spec, params = model.spec, model.params
+    L = spec.num_layers
+    none = dict.fromkeys(_build.LAUNCHES, 0)
+    prefill = none | {"qmatmul_fused": 4 * L}
+    step = none | {"qmatmul_fused": 2 * L, "qmlp": L}
+    with mock.patch.dict(os.environ, {"GPTQ_TPU_RT_FUSED": "1"}):
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        tokens = model.generate(ids, max_new_tokens=FUSED_NEW)
+        generate_s = time.perf_counter() - t0
+        counts = dict(_build.LAUNCHES)
+        want = {k: prefill[k] + (FUSED_NEW - 1) * step[k] for k in step}
+        require(counts == want, f"fused generate launched {counts}, expected {want}")
+        require(tokens.shape == (B, FUSED_NEW)
+                and ((tokens >= 0) & (tokens < spec.vocab_size)).all(),
+                f"fused: tokens {tokens.shape}")
+        timing = serve_timing(spec, params, ids, False, prefill, step)
+        cmp = compare_layers(spec, params, ids)
+    rec = {"phase": "fused", "gpu": card, "env": {"GPTQ_TPU_RT_FUSED": "1"}, "layers": L,
+           "B": B, "T": T, "new_tokens": FUSED_NEW, "kv": "bf16", "generate_s": generate_s,
+           "generate_counts": counts, "prefill_counts": prefill,
+           "decode_counts_per_step": step, "tokens_first_row": tokens[0].tolist(), **timing,
+           "compare": cmp}
+    emit(rec)
+    per_run = none | {"qmatmul_fused": 4 * 2 + 2 * 2 * (cmp["positions"] - 1),
+                      "qmlp": 2 * (cmp["positions"] - 1)}
+    require(cmp["counts"] == per_run, f"fused compare launched {cmp['counts']}")
+    require(cmp["logits_rel_err"] <= SLICE_TOL,
+            f"fused compare: rel {cmp['logits_rel_err']} > {SLICE_TOL}")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -1428,6 +1792,9 @@ def main() -> int:
         del blk, got, ref
     torch.cuda.empty_cache()
     cases += moe_kernel_cases(dev, timed, errors, copies_for)
+    small_rng = np.random.default_rng([SEED, 400])
+    cases += k6_kernel_cases(dev, small_rng, k1_shapes)
+    cases += k7_kernel_cases(dev, small_rng, k1_shapes)
     record["kernels"] = cases
 
     # ---------------------------------------------------------------- slice
@@ -1480,7 +1847,8 @@ def main() -> int:
             "load_s": load_s, "optimize_s": optimize_s, "weights_mem_bytes": weights_mem,
             "generate_s": generate_s, "generate_counts": counts, "peak_mem_bytes": peak,
             "prefill_counts": prefill_counts, "decode_counts_per_step": step_counts,
-            **timing,
+            "distinct_tokens_first_row": len(set(tokens[0].tolist())),
+            "tokens_first_row": tokens[0].tolist(), **timing,
         }
         emit(rec)
         slice_recs.append(rec)
@@ -1494,12 +1862,19 @@ def main() -> int:
     require(kernel_counts["qmatmul"] > 0 and kernel_counts["qmlp"] > 0, kernel_counts)
     require(cmp_rec["logits_rel_err"] <= SLICE_TOL,
             f"kernel path vs plain path: rel {cmp_rec['logits_rel_err']} > {SLICE_TOL}")
+
+    # ---------------------------------------------------------------- fused
+    record["fused"] = fused = fused_phase(model, ids, card)
     del model, params, layers
     torch.cuda.empty_cache()
 
     # ------------------------------------------- asym-act-slice, compare-act
     act = act_phases(ROOT / "build", card)
     record.update(act)
+
+    # ---------------------------------------------- g32-slice, compare-g32
+    g32 = g32_phases(ROOT / "build", card)
+    record.update(g32)
 
     # ------------------------------------------- quantize, compare-quantize
     with tempfile.TemporaryDirectory(prefix="llama3-8b-fp-", dir=ROOT / "build") as work:
@@ -1510,6 +1885,7 @@ def main() -> int:
         emit(cq_rec)
         record["compare_quantize"] = cq_rec
         record["quantize_act"] = quantize_act_phase(Path(work), state, card)
+        record["quantize_g32"] = quantize_g32_phase(Path(work), state, card)
 
     # ------------------------------------- moe-slice, compare-moe, moe-routes
     torch.cuda.empty_cache()
@@ -1520,10 +1896,10 @@ def main() -> int:
     # -------------------------------------------------------------- summary
     main_counts = slice_recs[0]["generate_counts"]  # the bf16-KV generate
 
-    def per_step(kernel: str, parts: list[tuple[str, int]]) -> dict:
+    def per_step(kernel: str, parts: list[tuple[str, int]], **match) -> dict:
         sel = [(c, n) for c in cases for proj, n in parts
                if c["kernel"] == kernel and c["M"] == B and c["proj"] == proj
-               and c.get("bits", 4) == 4]
+               and c.get("bits", 4) == 4 and all(c[k] == v for k, v in match.items())]
         total = lambda key: sum(c[key] * n for c, n in sel)
         return {"ms": total("ms"), "plain_ms": total("plain_ms"),
                 "bound_ms": total("bound_ms"),
@@ -1557,6 +1933,22 @@ def main() -> int:
          "launches_per": "asym-act-slice generate run", "ms_per": "decode step",
          "max_abs_err": max(c["max_abs_err"] for c in cases if c["kernel"] == "qmatmul_asym"),
          **per_step("qmatmul_asym", [("qkv", L), ("o", L), ("gate_up", L), ("down", L)])},
+        {"name": "qmatmul_fused (K7)", "route": "cuda",
+         "source": "gptqmodel_tpu_torch/csrc/qmatmul.cu",
+         "replaces": "gptqmodel_tpu/ops/pallas_qmatmul.py:263",
+         "launches": fused["generate_counts"]["qmatmul_fused"],
+         "launches_per": f"fused generate run (GPTQ_TPU_RT_FUSED=1, {FUSED_NEW} tokens)",
+         "ms_per": "decode step",
+         "max_abs_err": max(c["max_abs_err"] for c in cases if c["kernel"] == "qmatmul_fused"),
+         **per_step("qmatmul_fused", [("qkv", L), ("o", L)])},
+        {"name": "qmm (K6)", "route": "cuda",
+         "source": "gptqmodel_tpu_torch/csrc/qmm.cu",
+         "replaces": "gptqmodel_tpu/ops/pallas_qmatmul.py:55",
+         "launches": g32["g32_slice"]["generate_counts"]["qmm"],
+         "launches_per": "g32-slice generate run", "ms_per": "decode step (group 32, symmetric)",
+         "max_abs_err": max(c["max_abs_err"] for c in cases if c["kernel"] == "qmm"),
+         **per_step("qmm", [("qkv", L), ("o", L), ("gate_up", L), ("down", L)],
+                    group_size=32, sym=True)},
         {"name": "qmlp (K2)", "route": "cuda",
          "source": "gptqmodel_tpu_torch/csrc/qmlp.cu",
          "replaces": "gptqmodel_tpu/ops/pallas_qmlp.py:84",

@@ -1,4 +1,4 @@
-// K1 and K3: 2/4/8-bit dequant-matmul, y[M,N] = x[M,K] @ dequant(qweight).
+// K1, K3 and K7: 2/4/8-bit dequant-matmul, y[M,N] = x[M,K] @ dequant(qweight).
 //
 // K1 replaces the TPU kernel gptqmodel_tpu/ops/pallas_qmatmul.py
 // _qmm_rt_sym_kernel (reached through qmatmul(rt=True, zero_const>=0)):
@@ -10,7 +10,11 @@
 // round once to bf16 at the end; the arithmetic is in qmm_common.cuh, and K3
 // is the same tile with another zero-point source (GroupZeros), so K1's
 // instantiations do not change. Act-order modules reach both after the
-// caller's x-column gather (ops/registry.py).
+// caller's x-column gather (ops/registry.py). K7 replaces
+// _qmm_rt_sym_fused_kernel (:263, the opt-in GPTQ_TPU_RT_FUSED=1 variant of
+// K1): K1's tile and contract with the scales folded into the B operand,
+// bf16(c * s) (FOLD in qmm_common.cuh), and one zero correction per group;
+// it keeps the fp16 scales where the TPU kernel rounds them to bf16 first.
 //
 // What bounds it on an H100 (3.35 TB/s, 989 TFLOP/s bf16): at decode
 // (M <= 16) the packed weights, bits/8 bytes each, read once; at prefill
@@ -49,26 +53,14 @@
 
 namespace gqt {
 
-template <int BITS, int MT, int NT, class Z>
-void launch_qmatmul(const void* x, int M, int K, const void* qw, const void* sc, int N,
-                    int g, Z zero, void* out, cudaStream_t stream) {
-  const dim3 grid((M + 16 * MT - 1) / (16 * MT), N / (8 * NT));
-  qmatmul_kernel<BITS, MT, NT, Z><<<grid, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), M, K, static_cast<const uint32_t*>(qw),
-      static_cast<const __half*>(sc), N, g, zero, static_cast<__nv_bfloat16*>(out));
-}
-
-// Tile by M: decode (M <= 16) one row tile and 8 columns a block; up to 64
-// rows four row tiles; beyond, 32 x 32 tiles when N allows.
-template <int BITS, class Z>
+template <int BITS, class Z, bool FOLD = false>
 void dispatch_qmatmul(const void* x, int M, int K, const void* qw, const void* sc, int N,
                       int g, Z zero, void* out, cudaStream_t stream) {
-  if (M <= 16)
-    launch_qmatmul<BITS, 1, 1, Z>(x, M, K, qw, sc, N, g, zero, out, stream);
-  else if (M <= 64 || N % 32 != 0)
-    launch_qmatmul<BITS, 4, 1, Z>(x, M, K, qw, sc, N, g, zero, out, stream);
-  else
-    launch_qmatmul<BITS, 2, 4, Z>(x, M, K, qw, sc, N, g, zero, out, stream);
+  const auto kernel_of = [](auto tile) {
+    using T = decltype(tile);
+    return qmatmul_kernel<BITS, T::MT, T::NT, Z, FOLD>;
+  };
+  launch_by_m(kernel_of, x, M, K, qw, sc, N, g, zero, out, stream);
 }
 
 template <int BITS>
@@ -84,7 +76,7 @@ void dispatch_asym(const void* x, int M, int K, const void* qw, const void* sc,
 // the launch. The caller checks the contract: bf16 x [M, K] (16-byte aligned
 // rows), int32 qweight [K*bits/32, N], fp16 scales [K/g, N], g % 128 == 0,
 // K % g == 0, N % 8 == 0 (K3 also int32 v2 qzeros [K/g, N*bits/32]); and
-// allocates out [M, N] bf16.
+// allocates out [M, N] bf16. K7 (gqt_qmatmul_fused) takes K1's operands.
 extern "C" int gqt_qmatmul(const void* x, int M, int K, const void* qweight,
                            const void* scales, int N, int group_size, float zero_const,
                            int bits, void* out, void* stream) {
@@ -107,6 +99,22 @@ extern "C" int gqt_qmatmul_asym(const void* x, int M, int K, const void* qweight
     case 2: gqt::dispatch_asym<2>(x, M, K, qweight, scales, qzeros, N, group_size, out, s); break;
     case 4: gqt::dispatch_asym<4>(x, M, K, qweight, scales, qzeros, N, group_size, out, s); break;
     case 8: gqt::dispatch_asym<8>(x, M, K, qweight, scales, qzeros, N, group_size, out, s); break;
+    default: return -1;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gqt_qmatmul_fused(const void* x, int M, int K, const void* qweight,
+                                 const void* scales, int N, int group_size, float zero_const,
+                                 int bits, void* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using Z = gqt::UniformZero;
+  const Z z{zero_const};
+  const void* w = qweight;
+  switch (bits) {
+    case 2: gqt::dispatch_qmatmul<2, Z, true>(x, M, K, w, scales, N, group_size, z, out, s); break;
+    case 4: gqt::dispatch_qmatmul<4, Z, true>(x, M, K, w, scales, N, group_size, z, out, s); break;
+    case 8: gqt::dispatch_qmatmul<8, Z, true>(x, M, K, w, scales, N, group_size, z, out, s); break;
     default: return -1;
   }
   return (int)cudaGetLastError();

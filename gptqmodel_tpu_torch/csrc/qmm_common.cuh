@@ -26,11 +26,18 @@
 // (z <= 255, s has 11 significant bits). The scales are used as stored
 // (fp16), not rounded to bf16 as the TPU kernels do; the plain versions
 // (ops/qmatmul.py) compute the same sums in another order.
+//
+// K7 (FOLD, as _qmm_rt_sym_fused_kernel) folds the scale into the B operand
+// instead: each code becomes bf16(c * s_g), c * s_g exact in f32 and rounded
+// once, the mma sums x * bf16(c * s_g) straight into acc, and the group's end
+// subtracts X1_g * (zc * s_g). The TPU kernel rounds s_g to bf16 before the
+// product; the port keeps the fp16 scale, as K1 does.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace gqt {
@@ -95,6 +102,10 @@ struct UniformZero {  // K1: one value for every group and column
   __device__ __forceinline__ float2 operator()(int, int) const {
     return make_float2(zc, zc);
   }
+  // K6 reads one column's zero in two steps: word() where it loads the
+  // weights, one() where it uses them
+  __device__ __forceinline__ uint32_t word(int, int) const { return 0u; }
+  __device__ __forceinline__ float one(uint32_t, int) const { return zc; }
 };
 
 // K3: the module's v2 qzeros words as stored, [G, N*BITS/32] int32; column
@@ -102,16 +113,31 @@ struct UniformZero {  // K1: one value for every group and column
 // share one word.
 template <int BITS>
 struct GroupZeros {
+  static constexpr int PF = 32 / BITS;
+  static constexpr uint32_t kMask = (1u << BITS) - 1u;
   const uint32_t* qz;
   int words;  // words per group: N*BITS/32
+  __device__ __forceinline__ uint32_t word(int grp, int c) const {
+    return __ldg(qz + (size_t)grp * words + c / PF);
+  }
+  __device__ __forceinline__ float one(uint32_t w, int c) const {
+    return (float)((w >> (BITS * (c % PF))) & kMask);
+  }
   __device__ __forceinline__ float2 operator()(int grp, int c) const {
-    constexpr int PF = 32 / BITS;
-    constexpr uint32_t kMask = (1u << BITS) - 1u;
     const uint32_t w = __ldg(qz + (size_t)grp * words + c / PF);
     const int sh = BITS * (c % PF);
     return make_float2((float)((w >> sh) & kMask), (float)((w >> (sh + BITS)) & kMask));
   }
 };
+
+// K7's B pair: bf16(c * s) for the codes of code_pair(w, a), c * s exact in
+// f32 (at most 8 + 11 significant bits) and rounded once.
+template <int BITS>
+__device__ __forceinline__ uint32_t fold_pair(uint32_t w, int a, float s) {
+  const uint32_t c = code_pair<BITS>(w, a);
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&c));
+  return as_u32(__floats2bfloat162_rn(f.x * s, f.y * s));
+}
 
 __device__ __forceinline__ float pair_sum(uint32_t v) {
   const __nv_bfloat162 b = *reinterpret_cast<__nv_bfloat162*>(&v);
@@ -122,8 +148,8 @@ __device__ __forceinline__ float pair_sum(uint32_t v) {
 // multiples of g (itself a multiple of kChunk), for rows
 // m0 + 16*mt + lane/4 (+8 for i >= 2) and columns cols[nt] + 2*(lane%4) + (i&1).
 // x is [M, ldx] bf16; qw [K/PF, N] int32; sc [K/g, N] fp16; zero gives the
-// zero points (UniformZero or GroupZeros).
-template <int BITS, int MT, int NT, class Z>
+// zero points (UniformZero or GroupZeros). FOLD: K7's arithmetic (above).
+template <int BITS, int MT, int NT, class Z, bool FOLD = false>
 __device__ __forceinline__ void warp_tile(
     const __nv_bfloat16* __restrict__ x, int ldx, int M, int m0,
     const uint32_t* __restrict__ qw, const __half* __restrict__ sc, int N,
@@ -160,6 +186,12 @@ __device__ __forceinline__ void warp_tile(
 
   for (int k0 = k_begin; k0 < k_end; k0 += kChunk) {
     if (k0 + kChunk < k_end) load_w(k0 + kChunk, wn);  // in flight during the math
+    float sb[NT];  // FOLD: the scale of this lane's B column; a chunk is in one group
+    if constexpr (FOLD) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        sb[nt] = __half2float(sc[(size_t)(k0 / g) * N + cols[nt] + gid]);
+    }
 #pragma unroll
     for (int it = 0; it < IT; ++it) {
       const int kx = k0 + it * KI + t * PF;
@@ -180,9 +212,14 @@ __device__ __forceinline__ void warp_tile(
               __byte_perm(xa[s], xa[s + NS], 0x5410), __byte_perm(xb[s], xb[s + NS], 0x5410),
               __byte_perm(xa[s], xa[s + NS], 0x7632), __byte_perm(xb[s], xb[s + NS], 0x7632)};
 #pragma unroll
-          for (int nt = 0; nt < NT; ++nt)
-            mma_bf16(p[mt][nt], a, code_pair<BITS>(w[it][nt], 2 * s),
-                     code_pair<BITS>(w[it][nt], 2 * s + 1));
+          for (int nt = 0; nt < NT; ++nt) {
+            if constexpr (FOLD)
+              mma_bf16(acc[mt][nt], a, fold_pair<BITS>(w[it][nt], 2 * s, sb[nt]),
+                       fold_pair<BITS>(w[it][nt], 2 * s + 1, sb[nt]));
+            else
+              mma_bf16(p[mt][nt], a, code_pair<BITS>(w[it][nt], 2 * s),
+                       code_pair<BITS>(w[it][nt], 2 * s + 1));
+          }
         }
       }
     }
@@ -201,12 +238,19 @@ __device__ __forceinline__ void warp_tile(
               *reinterpret_cast<const __half2*>(sc + (size_t)grp * N + cols[nt] + 2 * t));
           const float2 z = zero(grp, cols[nt] + 2 * t);
           const float zs0 = z.x * s.x, zs1 = z.y * s.y;
-          acc[mt][nt][0] += p[mt][nt][0] * s.x - x1[mt][0] * zs0;
-          acc[mt][nt][1] += p[mt][nt][1] * s.y - x1[mt][0] * zs1;
-          acc[mt][nt][2] += p[mt][nt][2] * s.x - x1[mt][1] * zs0;
-          acc[mt][nt][3] += p[mt][nt][3] * s.y - x1[mt][1] * zs1;
+          if constexpr (FOLD) {  // the products are in acc already
+            acc[mt][nt][0] -= x1[mt][0] * zs0;
+            acc[mt][nt][1] -= x1[mt][0] * zs1;
+            acc[mt][nt][2] -= x1[mt][1] * zs0;
+            acc[mt][nt][3] -= x1[mt][1] * zs1;
+          } else {
+            acc[mt][nt][0] += p[mt][nt][0] * s.x - x1[mt][0] * zs0;
+            acc[mt][nt][1] += p[mt][nt][1] * s.y - x1[mt][0] * zs1;
+            acc[mt][nt][2] += p[mt][nt][2] * s.x - x1[mt][1] * zs0;
+            acc[mt][nt][3] += p[mt][nt][3] * s.y - x1[mt][1] * zs1;
 #pragma unroll
-          for (int i = 0; i < 4; ++i) p[mt][nt][i] = 0.f;
+            for (int i = 0; i < 4; ++i) p[mt][nt][i] = 0.f;
+          }
         }
         x1[mt][0] = x1[mt][1] = 0.f;
       }
@@ -241,11 +285,12 @@ __device__ __forceinline__ void store_bf16x2(__nv_bfloat16* p, float a, float b)
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// K1's kernel with Z = UniformZero, K3's with Z = GroupZeros (qmatmul.cu); the
-// fused MLP's down pass (qmlp.cu) launches K1's too.
+// K1's kernel with Z = UniformZero, K3's with Z = GroupZeros, K7's with
+// UniformZero and FOLD (qmatmul.cu); the fused MLP's down pass (qmlp.cu)
+// launches K1's too.
 // A block of kWarps warps owns rows m0 .. m0+16*MT-1 and columns
 // blockIdx.y*8*NT .. +8*NT-1; the warps split K by groups.
-template <int BITS, int MT, int NT, class Z>
+template <int BITS, int MT, int NT, class Z, bool FOLD = false>
 __global__ void __launch_bounds__(kThreads)
     qmatmul_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
                    const uint32_t* __restrict__ qw, const __half* __restrict__ sc,
@@ -260,7 +305,8 @@ __global__ void __launch_bounds__(kThreads)
   const int k_begin = (warp * G / kWarps) * g, k_end = ((warp + 1) * G / kWarps) * g;
 
   float acc[MT][NT][4];
-  warp_tile<BITS, MT, NT, Z>(x, K, M, m0, qw, sc, N, cols, g, k_begin, k_end, zero, acc);
+  warp_tile<BITS, MT, NT, Z, FOLD>(x, K, M, m0, qw, sc, N, cols, g, k_begin, k_end, zero,
+                                   acc);
   block_reduce<MT, NT>(red, acc);
   if (warp != 0) return;
   const int t = lane & 3, gid = lane >> 2;
@@ -274,6 +320,33 @@ __global__ void __launch_bounds__(kThreads)
       if (rb < M) store_bf16x2(out + (size_t)rb * N + c, acc[mt][nt][2], acc[mt][nt][3]);
     }
   }
+}
+
+template <int MT_, int NT_>
+struct Tile {
+  static constexpr int MT = MT_, NT = NT_;
+};
+
+// The tile by M, for qmatmul_kernel (K1, K3, K7) and qmm_kernel (K6): decode
+// (M <= 16) one row tile and 8 columns a block; up to 64 rows four row tiles;
+// beyond, 32 x 32 tiles when N allows. kernel_of(Tile<MT, NT>{}) gives the
+// kernel of that tile; both kernels take these operands.
+template <class KernelOf, class Z>
+void launch_by_m(KernelOf kernel_of, const void* x, int M, int K, const void* qw,
+                 const void* sc, int N, int g, Z zero, void* out, cudaStream_t stream) {
+  auto launch = [&](auto tile) {
+    using T = decltype(tile);
+    const dim3 grid((M + 16 * T::MT - 1) / (16 * T::MT), N / (8 * T::NT));
+    kernel_of(tile)<<<grid, kThreads, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(x), M, K, static_cast<const uint32_t*>(qw),
+        static_cast<const __half*>(sc), N, g, zero, static_cast<__nv_bfloat16*>(out));
+  };
+  if (M <= 16)
+    launch(Tile<1, 1>{});
+  else if (M <= 64 || N % 32 != 0)
+    launch(Tile<4, 1>{});
+  else
+    launch(Tile<2, 4>{});
 }
 
 }  // namespace gqt

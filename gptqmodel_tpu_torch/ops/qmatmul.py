@@ -1,6 +1,6 @@
-"""K1 and K3: dequant-matmul ``y = x @ dequant(qweight)`` on the card.
+"""K1, K3, K7 and K6: dequant-matmul ``y = x @ dequant(qweight)`` on the card.
 
-Both kernels (``csrc/qmatmul.cu``, arithmetic in ``csrc/qmm_common.cuh``)
+K1, K3 and K7 (``csrc/qmatmul.cu``, arithmetic in ``csrc/qmm_common.cuh``)
 read the GPTQ interchange layout directly and take contiguous groups of a
 multiple of 128, 2, 4 or 8 bits, bf16 activations and fp16 scales.
 
@@ -11,17 +11,32 @@ multiple of 128, 2, 4 or 8 bits, bf16 activations and fp16 scales.
   ``rt=True, zero_const<0``): a zero point per group and column, read from
   the module's v2 ``qzeros`` words as they are.
 
+- K7 (``qmatmul_fused``) replaces ``_qmm_rt_sym_fused_kernel`` (``:263``),
+  the variant of K1 that the JAX package runs under ``GPTQ_TPU_RT_FUSED=1``
+  (``:669-673``): K1's operands, each code dequantized to ``bf16(c * s)``
+  before the product, then one zero correction ``X1_g * (zc * s_g)`` per
+  group.
+- K6 (``qmm``, ``csrc/qmm.cu``) replaces ``_qmm_kernel`` (``:55``, reached
+  with ``rt=False``): contiguous groups of any size that holds whole words
+  (``qmm_supported``), ``w = bf16(bf16(c - z) * bf16(s))`` element by
+  element, then a product with float32 sums. The zero points are the v2
+  ``qzeros`` words as stored, or the module's one ``zero_const``.
+
 The TPU kernels' ``rt_supported`` (``:456``) also asks ``K % (8*g) == 0``,
 for their 8-group K tiles; the CUDA kernels split K by whole groups, so they
-need only ``K % g == 0``: the same arithmetic, on another tile. They keep the
-fp16 scales as stored, where the TPU kernels round them to bf16 (``:683``,
-``:692``).
+need only ``K % g == 0``: the same arithmetic, on another tile. K1, K3 and K7
+keep the fp16 scales as stored, where the TPU kernels round them to bf16
+(``:683``, ``:692``). K6 rounds them to bf16, as its TPU kernel and the
+dequantize-then-matmul reference do.
 
 Each wrapper launches its kernel for a CUDA tensor and uses its plain version
 only for a tensor on the CPU. The plain versions compute the kernels' sums
-in float32 (per-group partial dots, then the zero-point correction), in
+in float32 (K1 and K3: per-group partial dots, then the zero-point
+correction; K7 and K6: products of bf16 weights, K7 then its correction), in
 another order; the kernels' products are exact, so the two differ by float32
-summation order before the final rounding to the activation type.
+summation order before the final rounding to the activation type. K7's and
+K6's plain versions round x to bf16 first, as their TPU kernels do, so a
+float32 model on the CPU follows the JAX package's kernels.
 """
 
 from __future__ import annotations
@@ -67,15 +82,15 @@ def qmatmul_plain(x, qweight, scales, *, bits, group_size, zero_const):
 
 
 def _check_operands(x, qweight, scales, *, bits, group_size, zero_const=None, qzeros=None,
-                    name="K1"):
-    """Raise on what the kernel does not take: K1 (``zero_const``) or K3
-    (``qzeros``)."""
+                    name="K1", supported=None):
+    """Raise on what the kernel does not take: K1 and K7 (``zero_const``), K3
+    (``qzeros``) or K6 (``qzeros``, and ``supported=qmm_supported``)."""
     M, K = x.shape
     N = qweight.shape[1]
-    if not qmatmul_supported(bits, group_size, K, N):
+    if not (supported or qmatmul_supported)(bits, group_size, K, N):
         raise ValueError(f"{name} does not take bits={bits} group_size={group_size} K={K} N={N}")
     if qzeros is None and zero_const < 0:
-        raise ValueError("K1 needs one uniform zero point (symmetric weights)")
+        raise ValueError(f"{name} needs one uniform zero point (symmetric weights)")
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{name} takes bf16 activations, got {x.dtype}")
     g = group_size if group_size > 0 else K
@@ -153,4 +168,98 @@ def qmatmul_asym(x, qweight, scales, qzeros, *, bits, group_size):
     )
     _build.check(rc, "qmatmul_asym")
     _build.LAUNCHES["qmatmul_asym"] += 1
+    return out
+
+
+def qmatmul_fused_plain(x, qweight, scales, *, bits, group_size, zero_const):
+    """Plain PyTorch version of K7: ``x @ bf16(c * s) - X1 @ (zc * s)`` in
+    float32 (c * s exact, rounded once), rounded to the activation type."""
+    M, K = x.shape
+    g = group_size if group_size > 0 else K
+    sf = scales.to(torch.float32)
+    w = (unpack_qweight(qweight, bits).to(torch.float32) * sf.repeat_interleave(g, dim=0))
+    xb = x.to(torch.bfloat16).to(torch.float32)
+    x1 = xb.reshape(M, K // g, g).sum(dim=2)  # [M, G]
+    y = xb @ w.to(torch.bfloat16).to(torch.float32) - x1 @ (sf * zero_const)
+    return y.to(x.dtype)
+
+
+def qmatmul_fused(x, qweight, scales, *, bits, group_size, zero_const):
+    """K7: ``x [M, K] @ dequant(qweight)`` -> ``[M, N]`` in x's type, on K1's
+    operands and contract.
+
+    A CUDA tensor goes to the kernel (or raises); a CPU tensor to
+    ``qmatmul_fused_plain``."""
+    if x.device.type == "cpu":
+        return qmatmul_fused_plain(x, qweight, scales, bits=bits, group_size=group_size,
+                                   zero_const=zero_const)
+    _check_operands(x, qweight, scales, bits=bits, group_size=group_size,
+                    zero_const=zero_const, name="K7")
+    M, K = x.shape
+    N = qweight.shape[1]
+    g = group_size if group_size > 0 else K
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    if M == 0:
+        return out
+    rc = _build.lib().gqt_qmatmul_fused(
+        x.data_ptr(), M, K, qweight.data_ptr(), scales.data_ptr(), N, g,
+        float(zero_const), bits, out.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(rc, "qmatmul_fused")
+    _build.LAUNCHES["qmatmul_fused"] += 1
+    return out
+
+
+def qmm_supported(bits: int, group_size: int, K: int, N: int) -> bool:
+    """K6's contract: the JAX package's ``supports`` (``pallas_qmatmul.py:710``)
+    on contiguous groups (2/4/8 bits, ``K % g == 0``, whole words per group
+    ``g % (32/bits) == 0``, ``g % 8 == 0``, ``N % 128 == 0``), narrowed by
+    ``K % (128/bits) == 0``: the CUDA kernel splits K into steps of four
+    words of a column (32 K-rows at 4 bits, 64 at 2, 16 at 8)."""
+    g = group_size if group_size > 0 else K
+    return (bits in KERNEL_BITS and K % g == 0 and g % (32 // bits) == 0 and g % 8 == 0
+            and N % 128 == 0 and K % (128 // bits) == 0)
+
+
+def qmm_plain(x, qweight, scales, qzeros, *, bits, group_size, zero_const):
+    """Plain PyTorch version of K6: ``w = bf16(bf16(c - z) * bf16(s))`` (the
+    difference exact, the product rounded once), then ``bf16(x) @ w`` with
+    float32 sums, in x's type. ``zero_const >= 0`` is the module's one zero
+    point, else the zeros are read from the v2 ``qzeros`` words."""
+    K = x.shape[1]
+    g = group_size if group_size > 0 else K
+    codes = unpack_qweight(qweight, bits)
+    z = (zero_const if zero_const >= 0
+         else unpack_qzeros(qzeros, bits).repeat_interleave(g, dim=0))
+    s = scales.to(torch.bfloat16).repeat_interleave(g, dim=0)
+    w = (codes - z).to(torch.bfloat16) * s
+    y = x.to(torch.bfloat16).to(torch.float32) @ w.to(torch.float32)
+    return y.to(x.dtype)
+
+
+def qmm(x, qweight, scales, qzeros, *, bits, group_size, zero_const):
+    """K6: ``x [M, K] @ dequant(qweight)`` -> ``[M, N]`` in x's type, for
+    contiguous groups inside ``qmm_supported``.
+
+    A CUDA tensor goes to the kernel (or raises); a CPU tensor to
+    ``qmm_plain``."""
+    if x.device.type == "cpu":
+        return qmm_plain(x, qweight, scales, qzeros, bits=bits, group_size=group_size,
+                         zero_const=zero_const)
+    _check_operands(x, qweight, scales, bits=bits, group_size=group_size, qzeros=qzeros,
+                    name="K6", supported=qmm_supported)
+    M, K = x.shape
+    N = qweight.shape[1]
+    g = group_size if group_size > 0 else K
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    if M == 0:
+        return out
+    rc = _build.lib().gqt_qmm(
+        x.data_ptr(), M, K, qweight.data_ptr(), scales.data_ptr(), qzeros.data_ptr(), N, g,
+        float(zero_const), bits, out.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(rc, "qmm")
+    _build.LAUNCHES["qmm"] += 1
     return out

@@ -6,17 +6,23 @@ package's registry takes on the TPU (``gptqmodel_tpu/ops/registry.py:91-162,
 
 | module | route |
 | --- | --- |
-| contiguous or balanced act-order groups inside the kernels' contract (2/4/8 bits, groups a multiple of 128, ``qmatmul_supported``), one uniform zero point | K1 (``qmatmul``), after ``x[:, act_perm]`` for act-order |
+| contiguous or balanced act-order groups inside K1's contract (2/4/8 bits, groups a multiple of 128, ``qmatmul_supported``), one uniform zero point | K1 (``qmatmul``), after ``x[:, act_perm]`` for act-order; K7 (``qmatmul_fused``) instead under ``GPTQ_TPU_RT_FUSED=1`` |
 | the same with a zero point per group (``zero_const < 0``) | K3 (``qmatmul_asym``), after the same gather |
-| any other ``g_idx`` (ragged, or act-order outside the contract) | the dequantize-then-matmul reference ``qlinear_forward_torch`` (the JAX package's XLA path), at any M |
-| contiguous, outside the contract (groups of 32 or 64, 3/5/6/7 bits) | ``NotImplementedError`` naming the TPU kernel whose port a later slice brings (K6, K4 or K5) |
+| contiguous 2/4/8-bit groups outside K1's contract but inside K6's (``qmm_supported``: groups of 16, 32 or 64, N a multiple of 128), at most ``PALLAS_MAX_M`` rows | K6 (``qmm``) |
+| the same, more rows; contiguous 2/4/8-bit groups outside K6's contract too; any other ``g_idx`` (ragged, or act-order outside K1's contract) | the dequantize-then-matmul reference ``qlinear_forward_torch`` (the JAX package's XLA path) |
+| 3/5/6/7 bits | ``NotImplementedError`` naming the TPU kernel whose port a later slice brings (K4 or K5) |
 
 K1 and K3 modules stay on their kernel at every M, prefill included, as the
-reference's rt-layout modules do. Each wrapper launches its kernel for a CUDA
+reference's rt-layout modules do; K6 modules take the reference above
+``PALLAS_MAX_M`` rows, where the dequantized weight amortizes (JAX
+``registry.py:119-150``). ``GPTQ_TPU_RT_FUSED`` is read at each forward, the
+JAX package's own switch. Each wrapper launches its kernel for a CUDA
 tensor and runs its plain version only for a CPU tensor; on the CPU a module
-outside the contract runs the reference. K2 (``qmlp``) takes an MLP only when
-both its modules run K1 with no act-order permutation (the JAX package's
-``qmlp_forward`` refuses act-order and per-group zeros alike).
+of a later kernel runs the reference. On a CUDA tensor the reference route
+counts ``LAUNCHES["reference"]``. K2 (``qmlp``) takes an MLP only when
+both its modules are K1's, with no act-order permutation (the JAX package's
+``qmlp_forward`` refuses act-order and per-group zeros alike); it ignores
+``GPTQ_TPU_RT_FUSED``, as the JAX package's does.
 
 Stacked MoE experts (``ops/qmoe.py``) take K10, or with the JAX package's
 switches K11/K12, when ``qmoe_supported`` holds, else K13 or the dense
@@ -29,15 +35,29 @@ groups, without its TPU VMEM budgets. On the card a stack outside the kernels' o
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 
+from gptqmodel_tpu_torch.ops import _build
 from gptqmodel_tpu_torch.ops import pack as packing
 from gptqmodel_tpu_torch.ops.qlinear import QuantLinear, qlinear_forward_torch
-from gptqmodel_tpu_torch.ops.qmatmul import qmatmul, qmatmul_asym, qmatmul_supported
+from gptqmodel_tpu_torch.ops.qmatmul import (
+    KERNEL_BITS,
+    qmatmul,
+    qmatmul_asym,
+    qmatmul_fused,
+    qmatmul_supported,
+    qmm,
+    qmm_supported,
+)
 from gptqmodel_tpu_torch.ops.qmlp import qmlp, qmlp_supported
 from gptqmodel_tpu_torch.ops.qmoe import KERNEL_BITS as QMOE_BITS
 from gptqmodel_tpu_torch.ops.qmoe import kernel_contract
+
+# Above this many rows a K6 module's product is compute-bound and the one
+# dequantized weight amortizes (JAX registry.py:123).
+PALLAS_MAX_M = 256
 
 
 def _act_order_perm(p: QuantLinear) -> torch.Tensor | None:
@@ -102,14 +122,25 @@ def post_init_params(tree):
 
 
 def kernel_route(p: QuantLinear) -> str | None:
-    """``"K1"`` or ``"K3"`` for a module that runs a kernel, ``"reference"``
-    for a ``g_idx`` that post-init did not bake into the rows, None for a
-    module whose kernel a later slice ports."""
+    """The module's route: ``"K1"`` or ``"K3"``; ``"K6"`` (the reference
+    above ``PALLAS_MAX_M`` rows); ``"reference"`` for a ``g_idx`` that
+    post-init did not bake into the rows or a contiguous 2/4/8-bit module
+    outside K6's contract; None for a module whose kernel a later slice
+    ports. JAX ``select_kernel`` (``registry.py:91-117``)."""
     if p.g_idx is not None and p.act_perm is None:
         return "reference"
-    if not qmatmul_supported(p.bits, p.group_size, p.in_features, p.out_features):
+    if qmatmul_supported(p.bits, p.group_size, p.in_features, p.out_features):
+        return "K1" if p.zero_const >= 0 else "K3"
+    if p.bits not in KERNEL_BITS:
         return None
-    return "K1" if p.zero_const >= 0 else "K3"
+    return ("K6" if qmm_supported(p.bits, p.group_size, p.in_features, p.out_features)
+            else "reference")
+
+
+def rt_fused() -> bool:
+    """``GPTQ_TPU_RT_FUSED=1``: K1's modules run K7 (JAX
+    ``pallas_qmatmul.py:669-673``)."""
+    return os.environ.get("GPTQ_TPU_RT_FUSED", "0") == "1"
 
 
 def mlp_fusable(gu: QuantLinear, down: QuantLinear) -> bool:
@@ -120,16 +151,19 @@ def mlp_fusable(gu: QuantLinear, down: QuantLinear) -> bool:
 
 
 def _later_kernel(p: QuantLinear) -> str:
-    """The TPU kernel that would run this module, ported in a later slice."""
-    if p.bits in (3, 5, 6, 7):
-        return ("K4 _qmm_rtp_sym_kernel (ops/pallas_qmatmul.py:385)" if p.zero_const >= 0
-                else "K5 _qmm_rtp_kernel (ops/pallas_qmatmul.py:421)")
-    return "K6 _qmm_kernel (ops/pallas_qmatmul.py:55)"
+    """The TPU kernel that would run this 3/5/6/7-bit module, ported in a
+    later slice."""
+    return ("K4 _qmm_rtp_sym_kernel (ops/pallas_qmatmul.py:385)" if p.zero_const >= 0
+            else "K5 _qmm_rtp_kernel (ops/pallas_qmatmul.py:421)")
 
 
 def qlinear_forward(p: QuantLinear, x: torch.Tensor) -> torch.Tensor:
     route = kernel_route(p)
+    if route == "K6" and x.numel() // p.in_features > PALLAS_MAX_M:
+        route = "reference"
     if route == "reference" or (route is None and x.device.type == "cpu"):
+        if x.device.type == "cuda":
+            _build.LAUNCHES["reference"] += 1
         return qlinear_forward_torch(p, x)
     if route is None:
         raise NotImplementedError(
@@ -143,9 +177,12 @@ def qlinear_forward(p: QuantLinear, x: torch.Tensor) -> torch.Tensor:
     x2 = x2.contiguous() if p.act_perm is None else torch.index_select(x2, 1, p.act_perm)
     kw = dict(bits=p.bits, group_size=p.group_size)
     if route == "K1":
-        y = qmatmul(x2, p.qweight, p.scales, zero_const=p.zero_const, **kw)
-    else:
+        k1 = qmatmul_fused if rt_fused() else qmatmul
+        y = k1(x2, p.qweight, p.scales, zero_const=p.zero_const, **kw)
+    elif route == "K3":
         y = qmatmul_asym(x2, p.qweight, p.scales, p.qzeros, **kw)
+    else:
+        y = qmm(x2, p.qweight, p.scales, p.qzeros, zero_const=p.zero_const, **kw)
     y = y.reshape(*lead, p.out_features)
     if p.bias is not None:
         y = y + p.bias.to(y.dtype)

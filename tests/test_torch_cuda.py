@@ -27,7 +27,11 @@ from gptqmodel_tpu_torch.ops.qmatmul import (
     qmatmul,
     qmatmul_asym,
     qmatmul_asym_plain,
+    qmatmul_fused,
+    qmatmul_fused_plain,
     qmatmul_plain,
+    qmm,
+    qmm_plain,
 )
 from gptqmodel_tpu_torch.ops import qmoe
 from gptqmodel_tpu_torch.ops.qmlp import qmlp, qmlp_plain
@@ -187,6 +191,187 @@ def test_qmatmul_asym_refuses_what_it_does_not_take(cuda_device):
         qmatmul_asym(x, p.qweight, p.scales, p.qzeros[:, :-1].contiguous(), **kw)
     with pytest.raises(ValueError):
         qmatmul_asym(x, p.qweight, p.scales, p.qzeros.cpu(), **kw)
+
+
+# ------------------------------------------------------------------- K6, K7
+
+def _pow2_scales(rng, p, dev):
+    return torch.from_numpy(2.0 ** rng.integers(-7, -4, p.scales.shape)).to(dev).to(
+        torch.float16)
+
+
+def _int_x(rng, M, K, dev):
+    return torch.from_numpy(rng.integers(-4, 5, (M, K)).astype(np.float32)).to(dev).to(
+        torch.bfloat16)
+
+
+# K = 960 splits into 4-word steps unevenly between the 4 warps; M = 1 one
+# row tile, 40 four, 256 the 32 x 32 tiles; g = 16 and 32 put two groups in
+# one mma step at 2 bits
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("M", [1, 40, 256])
+@pytest.mark.parametrize("g,sym", [(32, True), (64, False), (16, False), (32, False)])
+def test_qmm_kernel_matches_plain(cuda_device, bits, M, g, sym):
+    """K6: each weight dequantized to ``bf16(bf16(c - z) * bf16(s))`` in both,
+    exact products, f32 sums in another order, one rounding to bf16: 1e-3
+    relative, and the same bits on every run."""
+    rng = np.random.default_rng(bits * 1000 + M + g + sym)
+    K, N = 960, 384
+    p = post_init_module(random_quant_linear(rng, K, N, bits, g, device=cuda_device, sym=sym))
+    assert (p.zero_const >= 0) == sym and registry.kernel_route(p) == "K6"
+    x = _x(rng, M, K, cuda_device)
+    args, kw = (x, p.qweight, p.scales, p.qzeros), dict(bits=bits, group_size=g,
+                                                         zero_const=p.zero_const)
+    before = _build.LAUNCHES["qmm"]
+    y = qmm(*args, **kw)
+    ref = qmm_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["qmm"] == before + 1
+    assert y.dtype == torch.bfloat16 and y.shape == (M, N)
+    assert _rel(y, ref) <= 1e-3
+    assert all(torch.equal(y, qmm(*args, **kw)) for _ in range(2))
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("sym", [True, False])
+def test_qmm_exact_inputs_give_equal_outputs(cuda_device, bits, sym):
+    """Integer activations and power-of-two scales: every weight, product and
+    partial sum is exact, so kernel and plain version agree bit for bit; a
+    scale or zero of the wrong group or column would not."""
+    rng = np.random.default_rng(27 + bits)
+    K, N = 512, 256
+    p = post_init_module(random_quant_linear(rng, K, N, bits, 32, device=cuda_device, sym=sym))
+    p.scales = _pow2_scales(rng, p, cuda_device)
+    x = _int_x(rng, 8, K, cuda_device)
+    args, kw = (x, p.qweight, p.scales, p.qzeros), dict(bits=bits, group_size=32,
+                                                         zero_const=p.zero_const)
+    assert torch.equal(qmm(*args, **kw), qmm_plain(*args, **kw))
+
+
+def test_qmm_refuses_what_it_does_not_take(cuda_device):
+    """No plain fallback on the card: f32 rows, qzeros of the wrong shape, CPU
+    operands and a group that splits a word (2 bits, g = 8) raise."""
+    rng = np.random.default_rng(25)
+    p = post_init_module(random_quant_linear(rng, 256, 128, 4, 32, device=cuda_device,
+                                             sym=False))
+    x = _x(rng, 4, 256, cuda_device)
+    kw = dict(bits=4, group_size=32, zero_const=p.zero_const)
+    with pytest.raises(TypeError):
+        qmm(x.float(), p.qweight, p.scales, p.qzeros, **kw)
+    with pytest.raises(ValueError):
+        qmm(x, p.qweight, p.scales, p.qzeros[:, :-1].contiguous(), **kw)
+    with pytest.raises(ValueError):
+        qmm(x, p.qweight, p.scales.cpu(), p.qzeros, **kw)
+    p2 = post_init_module(random_quant_linear(rng, 256, 128, 2, 16, device=cuda_device))
+    with pytest.raises(ValueError, match="does not take"):
+        qmm(x, p2.qweight, p2.scales, p2.qzeros, bits=2, group_size=8,
+            zero_const=p2.zero_const)
+
+
+@pytest.mark.parametrize("M,launched", [(1, "qmm"), (256, "qmm"), (300, "reference")])
+def test_group32_module_routes_by_rows(cuda_device, M, launched):
+    """A group-32 module runs K6 up to 256 rows and the counted
+    dequantize-then-matmul reference above; both near the reference."""
+    rng = np.random.default_rng(31 + M)
+    p = post_init_module(random_quant_linear(rng, 1024, 384, 4, 32, device=cuda_device))
+    x = _x(rng, M, 1024, cuda_device)
+    _build.reset_counts()
+    y = registry.qlinear_forward(p, x)
+    assert _build.LAUNCHES == dict.fromkeys(_build.LAUNCHES, 0) | {launched: 1}
+    assert _rel(y, qlinear_forward_torch(p, x)) <= 1e-3
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("M,N", [(1, 384), (5, 384), (40, 384), (100, 384), (100, 392)])
+def test_qmatmul_fused_kernel_matches_plain(cuda_device, bits, M, N):
+    """K7: ``x * bf16(c * s)`` summed, one zero correction per group; the
+    same weights and exact products in both, f32 sums in another order:
+    1e-3 relative, and the same bits on every run."""
+    rng = np.random.default_rng(bits * 100 + M + N)
+    K = 1024
+    p = post_init_module(random_quant_linear(rng, K, N, bits, device=cuda_device))
+    x = _x(rng, M, K, cuda_device)
+    kw = dict(bits=bits, group_size=128, zero_const=p.zero_const)
+    before = _build.LAUNCHES["qmatmul_fused"]
+    y = qmatmul_fused(x, p.qweight, p.scales, **kw)
+    ref = qmatmul_fused_plain(x, p.qweight, p.scales, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["qmatmul_fused"] == before + 1
+    assert y.dtype == torch.bfloat16 and y.shape == (M, N)
+    assert _rel(y, ref) <= 1e-3
+    assert all(torch.equal(y, qmatmul_fused(x, p.qweight, p.scales, **kw)) for _ in range(2))
+
+
+def test_qmatmul_fused_exact_inputs_give_equal_outputs(cuda_device):
+    rng = np.random.default_rng(37)
+    p = post_init_module(random_quant_linear(rng, 512, 256, 4, device=cuda_device))
+    p.scales = _pow2_scales(rng, p, cuda_device)
+    x = _int_x(rng, 8, 512, cuda_device)
+    kw = dict(bits=4, group_size=128, zero_const=p.zero_const)
+    assert torch.equal(qmatmul_fused(x, p.qweight, p.scales, **kw),
+                       qmatmul_fused_plain(x, p.qweight, p.scales, **kw))
+
+
+def test_qmatmul_fused_refuses_what_it_does_not_take(cuda_device):
+    """f32 rows, groups of 64, per-group zeros and CPU scales raise."""
+    rng = np.random.default_rng(35)
+    p = post_init_module(random_quant_linear(rng, 256, 128, 4, device=cuda_device))
+    x = _x(rng, 4, 256, cuda_device)
+    kw = dict(bits=4, group_size=128, zero_const=p.zero_const)
+    with pytest.raises(TypeError):
+        qmatmul_fused(x.float(), p.qweight, p.scales, **kw)
+    with pytest.raises(ValueError):
+        qmatmul_fused(x, p.qweight, p.scales, bits=4, group_size=64, zero_const=8.0)
+    with pytest.raises(ValueError):
+        qmatmul_fused(x, p.qweight, p.scales, bits=4, group_size=128, zero_const=-1.0)
+    with pytest.raises(ValueError):
+        qmatmul_fused(x, p.qweight, p.scales.cpu(), **kw)
+
+
+def test_group32_facade_runs_k6(cuda_device, tmp_path, monkeypatch):
+    """load -> optimize -> generate of a group-32 checkpoint: the prefill of
+    300 rows on the counted reference route, every decode step's four
+    projections per layer on K6, no K1, K2 or K3; the logits of decode-sized
+    forwards near the plain path's."""
+    write_random_gptq_checkpoint(tmp_path, TINY_LLAMA, seed=3, group_size=32)
+    model = GPTQModel.load(tmp_path).optimize()
+    L, B, T, new = 2, 3, 100, 5
+    ids = np.random.default_rng(4).integers(0, 1024, (B, T))
+    _build.reset_counts()
+    tokens = model.generate(ids, max_new_tokens=new)
+    assert tokens.shape == (B, new) and ((tokens >= 0) & (tokens < 1024)).all()
+    assert _build.LAUNCHES == dict.fromkeys(_build.LAUNCHES, 0) | {
+        "reference": 4 * L, "qmm": 4 * L * (new - 1)}
+    ids_t = torch.as_tensor(ids[:, :8], device=cuda_device)  # 24 rows: K6
+    with torch.inference_mode():
+        got = transformer.forward_logits(model.spec, model.params, ids_t, torch.bfloat16)
+        monkeypatch.setattr(registry, "qmm", qmm_plain)
+        ref = transformer.forward_logits(model.spec, model.params, ids_t, torch.bfloat16)
+    assert torch.isfinite(got).all()
+    assert _rel(got, ref) <= 1e-2
+
+
+def test_rt_fused_facade_runs_k7(cuda_device, tmp_path, monkeypatch):
+    """Under ``GPTQ_TPU_RT_FUSED=1`` the llama path runs K7 where it ran K1:
+    4 per layer in the prefill, 2 per layer and K2 once per layer in each
+    decode step; the logits near the plain path's."""
+    write_random_gptq_checkpoint(tmp_path, TINY_LLAMA, seed=5)
+    monkeypatch.setenv("GPTQ_TPU_RT_FUSED", "1")
+    model = GPTQModel.load(tmp_path).optimize()
+    L, B, T, new = 2, 3, 32, 5
+    ids = np.random.default_rng(6).integers(0, 1024, (B, T))
+    _build.reset_counts()
+    tokens = model.generate(ids, max_new_tokens=new)
+    assert tokens.shape == (B, new)
+    assert _build.LAUNCHES == dict.fromkeys(_build.LAUNCHES, 0) | {
+        "qmatmul_fused": 4 * L + 2 * L * (new - 1), "qmlp": L * (new - 1)}
+    ids_t = torch.as_tensor(ids, device=cuda_device)
+    with torch.inference_mode():
+        got = transformer.forward_logits(model.spec, model.params, ids_t, torch.bfloat16)
+        monkeypatch.setattr(registry, "qmatmul_fused", qmatmul_fused_plain)
+        ref = transformer.forward_logits(model.spec, model.params, ids_t, torch.bfloat16)
+    assert torch.isfinite(got).all()
+    assert _rel(got, ref) <= 1e-2
 
 
 @pytest.mark.parametrize("sym,kernel", [(True, "qmatmul"), (False, "qmatmul_asym")])

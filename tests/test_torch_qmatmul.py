@@ -1,9 +1,11 @@
-"""K1's plain version and the port's quantized linear against the JAX package.
+"""K1's and K7's plain versions and the port's quantized linear against the
+JAX package.
 
 The same seeded numpy codes, scales and activations go to both packages. The
 JAX Pallas kernel runs in interpret mode, as the JAX tests run it on the CPU.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,7 +19,12 @@ from gptqmodel_tpu_torch.convert import convert_quant_linear, to_torch
 from gptqmodel_tpu_torch.ops import _build
 from gptqmodel_tpu_torch.ops.qlinear import QuantLinear, dequantize_weight
 from gptqmodel_tpu_torch.ops.qlinear import make_quant_linear as tmake
-from gptqmodel_tpu_torch.ops.qmatmul import qmatmul, qmatmul_plain
+from gptqmodel_tpu_torch.ops.qmatmul import (
+    qmatmul,
+    qmatmul_fused,
+    qmatmul_fused_plain,
+    qmatmul_plain,
+)
 from gptqmodel_tpu_torch.ops.registry import (
     kernel_route,
     post_init_module,
@@ -25,8 +32,9 @@ from gptqmodel_tpu_torch.ops.registry import (
 )
 
 
-def _module(rng, out_f, in_f, bits=4, g=128, pow2=False, sym=True):
-    """A JAX QuantLinear in the interchange layout (v1 zeros, fp16 scales)."""
+def _module(rng, out_f, in_f, bits=4, g=128, pow2=False, sym=True, bf16_scales=False):
+    """A JAX QuantLinear in the interchange layout (v1 zeros, fp16 scales;
+    ``bf16_scales``: scales that are bf16 values, exact in fp16 too)."""
     Q = rng.integers(0, 2**bits, size=(out_f, in_f)).astype(np.int32)
     if sym:
         zeros = np.full((in_f // g, out_f), 2 ** (bits - 1), np.int32)
@@ -36,6 +44,8 @@ def _module(rng, out_f, in_f, bits=4, g=128, pow2=False, sym=True):
         scales = 2.0 ** rng.integers(-6, -3, size=(in_f // g, out_f))
     else:
         scales = rng.uniform(0.005, 0.02, size=(in_f // g, out_f))
+        if bf16_scales:
+            scales = np.asarray(jnp.asarray(scales, jnp.bfloat16), np.float32)
     return make_quant_linear(Q=Q, scales=scales, zeros=zeros, g_idx=None, bias=None,
                              bits=bits, group_size=g, sym=sym, v1=True)
 
@@ -110,6 +120,88 @@ def test_qmatmul_plain_matches_jax_rt_sym_kernel(bits, pow2):
         np.testing.assert_allclose(got32, ref32, rtol=2**-8, atol=1e-6 * np.abs(ref32).max())
     else:
         assert _rel(got32, ref32) < 1e-2
+
+
+@pytest.fixture
+def rt_fused(monkeypatch):
+    """``GPTQ_TPU_RT_FUSED=1`` for both packages. The JAX ``qmatmul`` reads
+    it when it traces, so its traces are dropped before and after."""
+    monkeypatch.setenv("GPTQ_TPU_RT_FUSED", "1")
+    jax.clear_caches()
+    yield
+    monkeypatch.delenv("GPTQ_TPU_RT_FUSED")
+    jax.clear_caches()
+
+
+def _jax_rt_sym(jm, x):
+    """The JAX package's symmetric rt kernel on the module (K1, or K7 under
+    ``GPTQ_TPU_RT_FUSED=1``), in interpret mode."""
+    jrt = jpost(jm)
+    assert jrt.rt_layout and jrt.zero_const >= 0
+    y = pallas_qmatmul.qmatmul(
+        jnp.asarray(x, jnp.bfloat16), jrt.qweight, jrt.scales, jrt.zvals, bits=jm.bits,
+        group_size=jm.group_size, rt=True, rt_block_k=jrt.rt_block_k,
+        zero_const=jrt.zero_const, interpret=True)
+    return np.asarray(y.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("M", [1, 8])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_k7_plain_matches_jax_fused_kernel(rt_fused, bits, M):
+    """Against ``_qmm_rt_sym_fused_kernel`` (interpret mode) on scales that
+    are bf16 values, where the TPU kernel's rounding of the scales to bf16
+    changes nothing: both sum ``x * bf16(c * s)`` and subtract ``X1 * (zc *
+    s)`` in float32, in another order, before one bf16 rounding: 1e-3
+    relative."""
+    rng = np.random.default_rng(200 + bits)
+    jm = _module(rng, 256, 1024, bits=bits, bf16_scales=True)
+    x = rng.standard_normal((M, 1024)).astype(np.float32)
+    ref = _jax_rt_sym(jm, x)
+    tm = _port(jm)
+    got = qmatmul_fused_plain(_cpu(x).to(torch.bfloat16), tm.qweight, tm.scales, bits=bits,
+                              group_size=128, zero_const=tm.zero_const)
+    assert got.dtype == torch.bfloat16
+    assert _rel(got.float().numpy(), ref) <= 1e-3
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_k7_plain_equals_jax_fused_kernel_on_one_hot_rows(rt_fused, bits):
+    """Power-of-two scales and one-hot rows of x: each output is one weight,
+    ``bf16(c * s) - zc * s``, exact on both sides, so they agree bit for bit;
+    a code, scale or group read at the wrong place breaks it."""
+    rng = np.random.default_rng(210 + bits)
+    jm = _module(rng, 256, 1024, bits=bits, pow2=True)
+    x = np.zeros((8, 1024), np.float32)
+    x[np.arange(8), rng.choice(1024, 8, replace=False)] = 1.0
+    ref = _jax_rt_sym(jm, x)
+    tm = _port(jm)
+    got = qlinear_forward(tm, _cpu(x).to(torch.bfloat16))
+    np.testing.assert_array_equal(got.float().numpy(), ref)
+
+
+def test_k7_wrapper_takes_plain_version_on_cpu_only(rt_fused, monkeypatch):
+    """Under ``GPTQ_TPU_RT_FUSED=1`` a K1 module's forward is K7: on the CPU
+    exactly its plain version; off the CPU the wrapper asks for the kernel
+    (refused here), refuses f32 activations, and counts no launch."""
+    rng = np.random.default_rng(13)
+    tm = _port(_module(rng, 128, 256))
+    x = _cpu(rng.standard_normal((5, 256)).astype(np.float32)).to(torch.bfloat16)
+    kw = dict(bits=4, group_size=128, zero_const=tm.zero_const)
+    assert kernel_route(tm) == "K1"
+    assert torch.equal(qlinear_forward(tm, x), qmatmul_fused_plain(x, tm.qweight, tm.scales, **kw))
+    assert torch.equal(qmatmul_fused(x, tm.qweight, tm.scales, **kw),
+                       qmatmul_fused_plain(x, tm.qweight, tm.scales, **kw))
+    _refuse_build(monkeypatch)
+    before = dict(_build.LAUNCHES)
+    meta = tm.to("meta")
+    with pytest.raises(RuntimeError, match="kernel library"):
+        qlinear_forward(meta, x.to("meta"))
+    with pytest.raises(TypeError, match="bf16"):
+        qmatmul_fused(x.to("meta").float(), meta.qweight, meta.scales, **kw)
+    with pytest.raises(ValueError, match="K7 does not take"):
+        qmatmul_fused(x.to("meta"), meta.qweight, meta.scales, bits=4, group_size=64,
+                      zero_const=tm.zero_const)
+    assert _build.LAUNCHES == before
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -208,11 +300,11 @@ def _meta_module(bits, g, sym, K=256, N=128):
 ])
 def test_module_outside_k1_raises_off_the_cpu(monkeypatch, sym, bits, g, act_order, kernel):
     """Off the CPU each module takes the JAX registry's route. Asymmetric
-    modules run K3 and balanced act-order ones K1 or K3 after the gather:
-    here they ask for the kernel library, which is refused, and count no
-    launch. A module whose kernel a later slice ports raises
-    NotImplementedError naming that TPU kernel: K6 for groups of 32, K4 or
-    K5 for 3 bits."""
+    modules run K3, balanced act-order ones K1 or K3 after the gather, and
+    contiguous groups of 32 K6, symmetric or not: here they ask for the
+    kernel library, which is refused, and count no launch. A module whose
+    kernel a later slice ports raises NotImplementedError naming that TPU
+    kernel: K4 or K5 for 3 bits."""
     _refuse_build(monkeypatch)
     if bits == 3:
         tm = _meta_module(bits, g, sym)
@@ -226,7 +318,7 @@ def test_module_outside_k1_raises_off_the_cpu(monkeypatch, sym, bits, g, act_ord
         assert (tm.act_perm is not None) == act_order
     x = torch.empty((4, 256), dtype=torch.bfloat16, device="meta")
     before = dict(_build.LAUNCHES)
-    if kernel in ("K1", "K3"):
+    if kernel in ("K1", "K3", "K6"):
         assert kernel_route(tm) == kernel
         with pytest.raises(RuntimeError, match="kernel library"):
             qlinear_forward(tm, x)
