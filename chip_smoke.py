@@ -39,8 +39,14 @@ Phases, each printing JSON lines on stdout:
    ``torch._weight_int4pack_mm`` at the same group size as the yardstick
    (its bound counts the zeros only where they are read), and the reference
    route (dequantize, then ``torch.matmul``) at M = 1024, timed for the
-   record; and K7 (``qmatmul_fused``) at K1's projections and sizes, with K1
-   and ``torch._weight_int4pack_mm`` timed beside it.
+   record; K7 (``qmatmul_fused``) at K1's projections and sizes, with K1
+   and ``torch._weight_int4pack_mm`` timed beside it; and K4
+   (``qmatmul_planes``, one zero point) and K5 (``qmatmul_planes_asym``,
+   random zeros per group and column) at 3 bits, stitched, at the same four
+   projections for M = 1, 8 and 1024, and 3, 5, 6 and 7-bit planar at qkv,
+   M = 8, twice each for equal bits (no PyTorch call takes such weights, so
+   no library time), with the reference route at M = 1024 timed for the
+   record.
 3. ``slice``: a GPTQ v1 checkpoint at Llama-3-8B's published widths (4-bit,
    symmetric, group 128, dense lm_head; random weights from a seed, about
    5.7 GB) is written to a temporary directory under ``build/``, then
@@ -81,7 +87,19 @@ Phases, each printing JSON lines on stdout:
    prefill and 8 decode steps of B = 8 rows (where K6 runs; asserted):
    logits within 1e-2. The same over all 32 layers of the first is
    recorded, its launch counts asserted and its logits not held to a limit.
-10. ``quantize``: a random bf16 checkpoint at Llama-3-8B's published widths
+10. ``planes-slice``: the same widths, all 32 layers, written as a 3-bit GPTQ
+   v1 checkpoint (symmetric, group 128, stitched words, drawn on the card,
+   about 4.8 GB), through ``GPTQModel.load(dir).optimize().generate(ids,
+   64)`` at B = 8, T = 128, bf16 KV. Asserted: 4 K4 per layer in the
+   prefill and in every decode step, no other kernel and no reference
+   product, no synchronizing call in a step. Printed as ``planes-slice``.
+11. ``compare-planes``: its first 2 layers, and 2-layer checkpoints at 3 bits
+   with ``sym=False, desc_act=True`` (K5 after the gather), at 5 bits
+   gptq_p symmetric (K4 on planar words) and at 7 bits gptq_p with
+   ``sym=False`` (K5 over three planes), kernel path against plain path as
+   ``compare``: logits within 1e-2. Each of the three also generates 8
+   tokens through ``generate``, its launches counted and asserted.
+12. ``quantize``: a random bf16 checkpoint at Llama-3-8B's published widths
    and 16 of its 32 layers (8 GB) goes through ``GPTQModel.load(dir,
    QuantizeConfig(bits=4, group_size=128, sym=True))``, ``.quantize(ids)``
    on 128 seeded rows of 512 tokens at batch 4, and ``.save(out)``; then
@@ -90,18 +108,21 @@ Phases, each printing JSON lines on stdout:
    K1/K2 counts of a prefill and 15 decode steps. Printed: seconds in all
    and per layer (forward, solve, pack), peak device memory, the losses'
    range and the saved bytes.
-11. ``compare-quantize``: layer 0 of that checkpoint quantized again, once
+13. ``compare-quantize``: layer 0 of that checkpoint quantized again, once
    with K8 swapped for its plain version and once through K9
    (``GPTQ_TPU_SOLVER=pallas``): per module, codes within 2e-3 of the K8
    run and the loss within 1e-3.
-12. ``quantize-act``: its first 2 layers through ``QuantizeConfig(sym=False,
+14. ``quantize-act``: its first 2 layers through ``QuantizeConfig(sym=False,
    desc_act=True)`` on K8, ``save``; ``GPTQModel.load`` of the result saved
    again must give the same bytes; then ``optimize().generate(ids, 8)`` on
    K3 alone.
-13. ``quantize-g32``: the same through ``QuantizeConfig(group_size=32)``:
+15. ``quantize-g32``: the same through ``QuantizeConfig(group_size=32)``:
    4 K8 per layer, the re-save byte-equal, and ``generate(ids, 8)`` with
    the prefill on the reference route and every decode step on K6 alone.
-14. ``moe-slice``: a GPTQ v1 checkpoint at Qwen3-30B-A3B's published widths
+16. ``quantize-planes``: the same through ``QuantizeConfig(bits=3)``: saved
+   as a 3-bit v1 checkpoint, the re-save byte-equal, and ``generate(ids,
+   8)`` on K4 alone.
+17. ``moe-slice``: a GPTQ v1 checkpoint at Qwen3-30B-A3B's published widths
    and all 48 layers (4-bit, symmetric, group 128, dense router and
    lm_head; random weights drawn on the card from a seed, about 17 GB) is
    written under ``build/``, then ``GPTQModel.load(dir).optimize()
@@ -109,14 +130,14 @@ Phases, each printing JSON lines on stdout:
    and 1 K10 per layer in the prefill and in every decode step, no other
    kernel. Printed: load s and peak memory, device memory, prefill ms,
    decode ms per step, tokens/s and the device's busy share.
-15. ``compare-moe``: its first 2 layers, the kernel path against the plain
+18. ``compare-moe``: its first 2 layers, the kernel path against the plain
    versions, teacher-forced: the plain path is fed the kernel path's tokens
    and follows its routes, experts and weights (the router's bf16 logits
    flip an expert at a near tie, or a weight by an ulp, and move a token's
    logits more than the kernels do); logits within 1e-2, the count of
    (token, layer) routes where the plain path's own router chose other
    experts, and the largest change of its probabilities.
-16. ``moe-routes``: layer 0 stacked again under each ``GPTQ_TPU_QMOE_*``
+19. ``moe-routes``: layer 0 stacked again under each ``GPTQ_TPU_QMOE_*``
    setting and run at N = 8 and 1024 tokens: K10 (rt, the default; ic with
    ``RT=0``), K11, K12, K13 and the dense fallback; each within 2e-2 of the
    default, K10 (ic) within 2e-3 of K11, K11 equal to K12, and the kernel
@@ -127,13 +148,14 @@ Then the card's name and power limit, the ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Each record of the kernels line
 names its units: ``launches`` counts a whole run of the main path
 (``launches_per``: K1 and K2 the generate run, K3 the asym-act-slice
-generate run, K6 the g32-slice generate run, K7 the fused generate run, K8
-the quantize run, K9 the one-layer quantize run through
+generate run, K6 the g32-slice generate run, K7 the fused generate run, K4
+the planes-slice generate run, K5 the compare-planes generate runs of its
+two asymmetric checkpoints, K8 the quantize run, K9 the one-layer quantize run through
 ``GPTQ_TPU_SOLVER=pallas``, K10 the moe generate run, K11-K13 the
 moe-routes run), and the times are per ``ms_per``: K1, K2, K3, K6 and K7
 one decode step at B = 8 (K1 and K7 over qkv and o of every layer, K2 over
-every layer's MLP, K3 and K6 over qkv, o, gate_up and down of every layer,
-K6 at group 32, symmetric), K8 and K9 one quantized
+every layer's MLP, K3, K6, K4 and K5 over qkv, o, gate_up and down of every
+layer, K6 at group 32, symmetric, K4 and K5 at 3 bits, stitched), K8 and K9 one quantized
 layer (K8 one solve of each group, K9 each group's 128-column blocks), K10
 one decode step at B = 8 over the 48 MoE layers, K11-K13 one MoE layer at
 N = 8 tokens (K13 gate|up and down). A failed check raises and exits
@@ -187,6 +209,18 @@ K6_REF_M = 1024  # the prefill's rows, on the reference route: timed for the rec
 K6_TOL = K7_TOL = K1_TOL
 # the fused phase: the llama slice's model under GPTQ_TPU_RT_FUSED=1
 FUSED_NEW = 16
+# K4 and K5: 3-bit stitched at every projection for K1_MS, symmetric (K4)
+# and with random zeros per group and column (K5); the planar layouts at qkv,
+# M = 8, both kernels. As K1 and K3: exact products and z*s, f32 sums in
+# another order
+PLANE_LAYOUTS = ((3, True), (5, True), (6, True), (7, True))  # (bits, planar) at qkv
+K4_TOL = K5_TOL = K1_TOL
+PLANES_REF_M = 1024  # the reference route (dequantize, then torch.matmul): for the record
+# compare-planes: 2-layer checkpoints beside the planes-slice's first 2 layers
+# (bits, format, sym, desc_act) -> the kernel each runs
+PLANE_COMPARES = {"3bit_asym_act": (3, "gptq", False, True, "qmatmul_planes_asym"),
+                  "5bit_gptq_p_sym": (5, "gptq_p", True, False, "qmatmul_planes"),
+                  "7bit_gptq_p_asym": (7, "gptq_p", False, False, "qmatmul_planes_asym")}
 # logits after 2 layers: one-ulp bf16 flips of the products, carried on
 SLICE_TOL = 1e-2
 # K8 against its plain version: the JAX package's tolerances for its K8
@@ -320,6 +354,8 @@ def plain_versions():
              (registry, "qmatmul_asym", k1.qmatmul_asym_plain),
              (registry, "qmatmul_fused", k1.qmatmul_fused_plain),
              (registry, "qmm", k1.qmm_plain),
+             (registry, "qmatmul_planes", k1.qmatmul_planes_plain),
+             (registry, "qmatmul_planes_asym", k1.qmatmul_planes_asym_plain),
              (registry, "qmlp", k2.qmlp_plain)] + [
         (qmoe, name, getattr(qmoe, name + "_plain"))
         for name in ("qmoe_mlp_e2e", "qmoe_mlp_matmul_dyn", "qmoe_mlp_matmul", "qmoe_matmul")]
@@ -682,11 +718,22 @@ def compare_layers(spec, params, ids, layers: int = 2, steps: int = 8) -> dict:
             "logits_tol": SLICE_TOL, "greedy_agreement": agree, "counts": counts}
 
 
-def act_phases(root: Path, card: str) -> dict:
-    """``asym-act-slice`` and ``compare-act``: GPTQ checkpoints at
-    Llama-3-8B's published widths written with ``sym=False, desc_act=True``
-    (all 32 layers) and with ``sym=True, desc_act=True`` (2 layers), random
-    weights drawn on the card from the seed, under ``root``."""
+def projections(model) -> list:
+    """Every quantized projection of a loaded llama model, layer by layer."""
+    return [m for lp in model.params["model"]["layers"]
+            for m in (*lp["self_attn"].values(), *lp["mlp"].values())]
+
+
+def slice_phase(root: Path, card: str, phase: str, ids, options: dict, module_ok,
+                prefill: dict, step: dict):
+    """One slice: a GPTQ checkpoint at Llama-3-8B's published widths and all
+    32 layers, written with ``options`` under ``root`` (random weights drawn
+    on the card from the seed), through ``GPTQModel.load(dir).optimize()
+    .generate(ids, NEW)`` at B = 8, T = 128, bf16 KV. Asserted: q/k/v and
+    gate/up fused, no MLP marked for K2, ``module_ok`` for every projection,
+    the launch counts ``prefill`` in the prefill and ``step`` in each decode
+    step, tokens in the vocabulary; then the prefill and the steps are timed
+    (``serve_timing``). Emits the record; returns the model and the record."""
     import torch
 
     from gptqmodel_tpu_torch import GPTQModel
@@ -694,13 +741,10 @@ def act_phases(root: Path, card: str) -> dict:
     from gptqmodel_tpu_torch.utils.testing import LLAMA3_8B_CONFIG, write_random_gptq_checkpoint
 
     L = LLAMA3_8B_CONFIG["num_hidden_layers"]
-    none = dict.fromkeys(_build.LAUNCHES, 0)
-    k3 = none | {"qmatmul_asym": 4 * L}  # fused qkv, o, fused gate_up, down
-    ids = np.random.default_rng([SEED, 6]).integers(0, LLAMA3_8B_CONFIG["vocab_size"], (B, T))
-    with tempfile.TemporaryDirectory(prefix="llama3-8b-asym-act-", dir=root) as ckpt:
+    with tempfile.TemporaryDirectory(prefix=f"llama3-8b-{phase}-", dir=root) as ckpt:
         t0 = time.perf_counter()
-        n_bytes = write_random_gptq_checkpoint(ckpt, LLAMA3_8B_CONFIG, seed=SEED, sym=False,
-                                               desc_act=True, device="cuda")
+        n_bytes = write_random_gptq_checkpoint(ckpt, LLAMA3_8B_CONFIG, seed=SEED, device="cuda",
+                                               **options)
         write_s = time.perf_counter() - t0
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -715,10 +759,8 @@ def act_phases(root: Path, card: str) -> dict:
     require(model.device.type == "cuda" and len(lps) == L and all(
         set(lp["self_attn"]) == {"qkv_proj", "o_proj"}
         and set(lp["mlp"]) == {"gate_up_proj", "down_proj"} for lp in lps),
-        "asym-act-slice: q/k/v or gate/up left unfused, or an MLP marked for K2")
-    require(all(m.act_perm is not None and m.zero_const < 0 for lp in lps
-                for m in (*lp["self_attn"].values(), *lp["mlp"].values())),
-            "asym-act-slice: a module without act_perm, or with one zero point")
+        f"{phase}: q/k/v or gate/up left unfused, or an MLP marked for K2")
+    require(all(module_ok(m) for m in projections(model)), f"{phase}: a module off its route")
     weights_mem = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_counts()
@@ -726,47 +768,99 @@ def act_phases(root: Path, card: str) -> dict:
     tokens = model.generate(ids, max_new_tokens=NEW)
     generate_s = time.perf_counter() - t0
     counts = dict(_build.LAUNCHES)
-    want = {k: NEW * v for k, v in k3.items()}  # the prefill and NEW - 1 steps
-    require(counts == want, f"asym-act-slice generate launched {counts}, expected {want}")
+    want = {k: prefill[k] + (NEW - 1) * step[k] for k in step}
+    require(counts == want, f"{phase} generate launched {counts}, expected {want}")
     require(tokens.shape == (B, NEW) and ((tokens >= 0) & (tokens < spec.vocab_size)).all(),
-            f"asym-act-slice: tokens {tokens.shape}")
-    timing = serve_timing(spec, params, ids, False, k3, k3)
-    out = {}
-    out["asym_act_slice"] = rec = {
-        "phase": "asym-act-slice", "gpu": card, "layers": L, "B": B, "T": T, "new_tokens": NEW,
-        "kv": "bf16", "options": {"sym": False, "desc_act": True}, "checkpoint_bytes": n_bytes,
-        "write_s": write_s, "load_s": load_s, "load_peak_mem_bytes": load_peak,
-        "weights_mem_bytes": weights_mem, "generate_s": generate_s, "generate_counts": counts,
+            f"{phase}: tokens {tokens.shape}")
+    timing = serve_timing(spec, params, ids, False, prefill, step)
+    rec = {
+        "phase": phase, "gpu": card, "layers": L, "B": B, "T": T, "new_tokens": NEW,
+        "kv": "bf16", "options": options, "checkpoint_bytes": n_bytes, "write_s": write_s,
+        "load_s": load_s, "load_peak_mem_bytes": load_peak, "weights_mem_bytes": weights_mem,
+        "generate_s": generate_s, "generate_counts": counts,
         "generate_peak_mem_bytes": torch.cuda.max_memory_allocated(),
-        "prefill_counts": k3, "decode_counts_per_step": k3,
+        "prefill_counts": prefill, "decode_counts_per_step": step,
         "distinct_tokens_first_row": len(set(tokens[0].tolist())),
         "tokens_first_row": tokens[0].tolist(), **timing}
     emit(rec)
+    return model, rec
 
-    cmp = {"asym": compare_layers(spec, params, ids)}
-    del model, params, lps
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(prefix="llama3-8b-sym-act-", dir=root) as ckpt:
+
+def compare_checkpoint(root: Path, ids, name: str, seed: int, options: dict, module_ok,
+                       generate_kernel: str | None = None) -> dict:
+    """A 2-layer GPTQ checkpoint at Llama-3-8B's published widths, written
+    with ``options`` under ``root`` (drawn on the card from ``seed``),
+    ``module_ok`` for every projection, through ``compare_layers``. With
+    ``generate_kernel`` the facade first generates ``QUANT_ACT_NEW`` tokens,
+    every launch on that kernel (recorded as ``generate_counts``)."""
+    import torch
+
+    from gptqmodel_tpu_torch import GPTQModel
+    from gptqmodel_tpu_torch.ops import _build
+    from gptqmodel_tpu_torch.utils.testing import LLAMA3_8B_CONFIG, write_random_gptq_checkpoint
+
+    with tempfile.TemporaryDirectory(prefix=f"llama3-8b-{name}-", dir=root) as ckpt:
         write_random_gptq_checkpoint(ckpt, dict(LLAMA3_8B_CONFIG, num_hidden_layers=2),
-                                     seed=SEED + 1, sym=True, desc_act=True, device="cuda")
+                                     seed=seed, device="cuda", **options)
         model = GPTQModel.load(ckpt).optimize()
-    require(all(m.act_perm is not None and m.zero_const >= 0
-                for lp in model.params["model"]["layers"]
-                for m in (*lp["self_attn"].values(), *lp["mlp"].values())),
-            "compare-act: a symmetric module without act_perm")
-    cmp["sym"] = compare_layers(model.spec, model.params, ids)
+    require(all(module_ok(m) for m in projections(model)), f"{name}: a module off its route")
+    rec = {"options": options}
+    if generate_kernel:
+        _build.reset_counts()
+        tokens = model.generate(ids, max_new_tokens=QUANT_ACT_NEW)
+        rec["generate_counts"] = gen_counts = dict(_build.LAUNCHES)
+        want = dict.fromkeys(_build.LAUNCHES, 0) | {generate_kernel: 4 * 2 * QUANT_ACT_NEW}
+        require(gen_counts == want, f"{name} generate launched {gen_counts}, expected {want}")
+        require(tokens.shape == (B, QUANT_ACT_NEW), f"{name}: tokens {tokens.shape}")
+    rec.update(compare_layers(model.spec, model.params, ids))
     del model
     torch.cuda.empty_cache()
-    out["compare_act"] = rec = {"phase": "compare-act", "gpu": card, **cmp}
+    return rec
+
+
+def compare_phase(card: str, phase: str, cmp: dict, want: dict, **extra) -> dict:
+    """Emits the record of the compares ``cmp``, then asserts each: launch
+    counts ``want[name]`` (every other kernel 0) and logits within
+    ``SLICE_TOL``."""
+    from gptqmodel_tpu_torch.ops import _build
+
+    rec = {"phase": phase, "gpu": card, **cmp, **extra}
     emit(rec)
-    per_run = 4 * 2 * cmp["asym"]["positions"]  # 4 per layer, prefill and each step
-    require(cmp["asym"]["counts"] == none | {"qmatmul_asym": per_run},
-            f"compare-act asym launched {cmp['asym']['counts']}")
-    require(cmp["sym"]["counts"] == none | {"qmatmul": per_run},
-            f"compare-act sym launched {cmp['sym']['counts']}: expected K1 alone")
+    none = dict.fromkeys(_build.LAUNCHES, 0)
     for name, c in cmp.items():
+        require(c["counts"] == none | want[name],
+                f"{phase} {name} launched {c['counts']}, expected {want[name]}")
         require(c["logits_rel_err"] <= SLICE_TOL,
-                f"compare-act {name}: rel {c['logits_rel_err']} > {SLICE_TOL}")
+                f"{phase} {name}: rel {c['logits_rel_err']} > {SLICE_TOL}")
+    return rec
+
+
+def act_phases(root: Path, card: str) -> dict:
+    """``asym-act-slice`` and ``compare-act``: GPTQ checkpoints at
+    Llama-3-8B's published widths written with ``sym=False, desc_act=True``
+    (all 32 layers, ``slice_phase``, every projection on K3) and with
+    ``sym=True, desc_act=True`` (2 layers, K1 after the gather), random
+    weights drawn on the card from the seed, under ``root``."""
+    import torch
+
+    from gptqmodel_tpu_torch.ops import _build
+    from gptqmodel_tpu_torch.utils.testing import LLAMA3_8B_CONFIG
+
+    L = LLAMA3_8B_CONFIG["num_hidden_layers"]
+    k3 = dict.fromkeys(_build.LAUNCHES, 0) | {"qmatmul_asym": 4 * L}  # qkv, o, gate_up, down
+    ids = np.random.default_rng([SEED, 6]).integers(0, LLAMA3_8B_CONFIG["vocab_size"], (B, T))
+    model, rec = slice_phase(root, card, "asym-act-slice", ids, {"sym": False, "desc_act": True},
+                             lambda m: m.act_perm is not None and m.zero_const < 0, k3, k3)
+    out = {"asym_act_slice": rec}
+    cmp = {"asym": compare_layers(model.spec, model.params, ids)}
+    del model
+    torch.cuda.empty_cache()
+    cmp["sym"] = compare_checkpoint(root, ids, "sym-act", SEED + 1,
+                                    {"sym": True, "desc_act": True},
+                                    lambda m: m.act_perm is not None and m.zero_const >= 0)
+    want = {"asym": {"qmatmul_asym": 4 * 2 * cmp["asym"]["positions"]},
+            "sym": {"qmatmul": 4 * 2 * cmp["sym"]["positions"]}}  # K1 alone
+    out["compare_act"] = compare_phase(card, "compare-act", cmp, want)
     return out
 
 
@@ -860,6 +954,21 @@ def quantize_g32_phase(root: Path, state: dict, card: str) -> dict:
                       for lp in m.params["model"]["layers"]
                       for k in ("self_attn", "mlp") for q in lp[k].values()),
         {"reference": 4 * layers, "qmm": 4 * layers * (new - 1)})
+
+
+def quantize_planes_phase(root: Path, state: dict, card: str) -> dict:
+    """quantize-planes (``requantize_phase``): ``QuantizeConfig(bits=3)``,
+    saved as a 3-bit v1 checkpoint (stitched words), K4 alone at
+    generate."""
+    from gptqmodel_tpu_torch.ops.registry import kernel_route
+
+    layers, new = QUANT_ACT_LAYERS, QUANT_ACT_NEW
+    return requantize_phase(
+        root, state, card, "quantize-planes", {"bits": 3},
+        lambda m: all(q.bits == 3 and not q.planar and kernel_route(q) == "K4"
+                      for lp in m.params["model"]["layers"]
+                      for k in ("self_attn", "mlp") for q in lp[k].values()),
+        {"qmatmul_planes": 4 * layers * new})
 
 
 def count_dense_fallback():
@@ -1451,18 +1560,16 @@ def g32_phases(root: Path, card: str) -> dict:
     """``g32-slice`` and ``compare-g32``: a GPTQ checkpoint at Llama-3-8B's
     published widths and all 32 layers at group 32 (4-bit, symmetric, dense
     lm_head; random weights drawn on the card from the seed, about 6.1 GB)
-    written under ``root``, through ``GPTQModel.load(dir).optimize()
-    .generate(ids, 64)`` at B = 8, T = 128, bf16 KV; then its first 2 layers
-    and those of a 2-layer checkpoint at group 64 with ``sym=False``, each
-    kernel path against the plain path over a prefill and 8 decode steps of
-    B = 8 rows (the prefill's 1024 rows take the reference route in both, so
-    the decode steps are what holds K6 to its plain version)."""
+    through ``slice_phase``; then its first 2 layers and those of a 2-layer
+    checkpoint at group 64 with ``sym=False``, each kernel path against the
+    plain path over a prefill and 8 decode steps of B = 8 rows (the
+    prefill's 1024 rows take the reference route in both, so the decode
+    steps are what holds K6 to its plain version)."""
     import torch
 
-    from gptqmodel_tpu_torch import GPTQModel
     from gptqmodel_tpu_torch.ops import _build
     from gptqmodel_tpu_torch.ops.registry import kernel_route
-    from gptqmodel_tpu_torch.utils.testing import LLAMA3_8B_CONFIG, write_random_gptq_checkpoint
+    from gptqmodel_tpu_torch.utils.testing import LLAMA3_8B_CONFIG
 
     cfg = LLAMA3_8B_CONFIG
     L = cfg["num_hidden_layers"]
@@ -1470,83 +1577,159 @@ def g32_phases(root: Path, card: str) -> dict:
     prefill = none | {"reference": 4 * L}  # B x T = 1024 rows: above PALLAS_MAX_M
     step = none | {"qmm": 4 * L}  # fused qkv, o, fused gate_up, down
     ids = np.random.default_rng([SEED, 8]).integers(0, cfg["vocab_size"], (B, T))
-
-    def projections(model):
-        return [m for lp in model.params["model"]["layers"]
-                for m in (*lp["self_attn"].values(), *lp["mlp"].values())]
-
-    with tempfile.TemporaryDirectory(prefix="llama3-8b-g32-", dir=root) as ckpt:
-        t0 = time.perf_counter()
-        n_bytes = write_random_gptq_checkpoint(ckpt, cfg, seed=SEED, group_size=32,
-                                               device="cuda")
-        write_s = time.perf_counter() - t0
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        model = GPTQModel.load(ckpt)
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
-        load_peak = torch.cuda.max_memory_allocated()
-    model.optimize()
-    spec, params = model.spec, model.params
-    lps = params["model"]["layers"]
-    require(model.device.type == "cuda" and len(lps) == L and all(
-        set(lp["self_attn"]) == {"qkv_proj", "o_proj"}
-        and set(lp["mlp"]) == {"gate_up_proj", "down_proj"} for lp in lps),
-        "g32-slice: q/k/v or gate/up left unfused, or an MLP marked for K2")
-    require(all(m.group_size == 32 and m.zero_const >= 0 and kernel_route(m) == "K6"
-                for m in projections(model)), "g32-slice: a module off K6's route")
-    weights_mem = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    _build.reset_counts()
-    t0 = time.perf_counter()
-    tokens = model.generate(ids, max_new_tokens=NEW)
-    generate_s = time.perf_counter() - t0
-    counts = dict(_build.LAUNCHES)
-    want = {k: prefill[k] + (NEW - 1) * step[k] for k in step}
-    require(counts == want, f"g32-slice generate launched {counts}, expected {want}")
-    require(tokens.shape == (B, NEW) and ((tokens >= 0) & (tokens < spec.vocab_size)).all(),
-            f"g32-slice: tokens {tokens.shape}")
-    timing = serve_timing(spec, params, ids, False, prefill, step)
-    out = {}
-    out["g32_slice"] = rec = {
-        "phase": "g32-slice", "gpu": card, "layers": L, "B": B, "T": T, "new_tokens": NEW,
-        "kv": "bf16", "options": {"bits": 4, "group_size": 32, "sym": True},
-        "checkpoint_bytes": n_bytes, "write_s": write_s, "load_s": load_s,
-        "load_peak_mem_bytes": load_peak, "weights_mem_bytes": weights_mem,
-        "generate_s": generate_s, "generate_counts": counts,
-        "generate_peak_mem_bytes": torch.cuda.max_memory_allocated(),
-        "prefill_counts": prefill, "decode_counts_per_step": step,
-        "distinct_tokens_first_row": len(set(tokens[0].tolist())),
-        "tokens_first_row": tokens[0].tolist(), **timing}
-    emit(rec)
-
-    cmp = {"sym_g32": compare_layers(spec, params, ids)}
+    model, rec = slice_phase(
+        root, card, "g32-slice", ids, {"bits": 4, "group_size": 32, "sym": True},
+        lambda m: m.group_size == 32 and m.zero_const >= 0 and kernel_route(m) == "K6",
+        prefill, step)
+    out = {"g32_slice": rec}
+    cmp = {"sym_g32": compare_layers(model.spec, model.params, ids)}
     # the same at all 32 layers, for the record: whether the plain path
     # picks the kernel path's greedy tokens through the whole model
-    full = compare_layers(spec, params, ids, layers=L)
+    full = compare_layers(model.spec, model.params, ids, layers=L)
     require(full["counts"] == none | {"reference": 4 * L, "qmm": 4 * L * (full["positions"] - 1)},
             f"compare-g32 at {L} layers launched {full['counts']}")
-    del model, params, lps
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(prefix="llama3-8b-asym-g64-", dir=root) as ckpt:
-        write_random_gptq_checkpoint(ckpt, dict(cfg, num_hidden_layers=2), seed=SEED + 2,
-                                     group_size=64, sym=False, device="cuda")
-        model = GPTQModel.load(ckpt).optimize()
-    require(all(m.group_size == 64 and m.zero_const < 0 and kernel_route(m) == "K6"
-                for m in projections(model)), "compare-g32: a g64 module off K6's route")
-    cmp["asym_g64"] = compare_layers(model.spec, model.params, ids)
     del model
     torch.cuda.empty_cache()
-    out["compare_g32"] = rec = {"phase": "compare-g32", "gpu": card, **cmp,
-                                "all_layers_unchecked": full}
-    emit(rec)
-    for name, c in cmp.items():
-        steps = c["positions"] - 1
-        require(c["counts"] == none | {"reference": 4 * 2, "qmm": 4 * 2 * steps},
-                f"compare-g32 {name} launched {c['counts']}: expected K6 at every step")
-        require(c["logits_rel_err"] <= SLICE_TOL,
-                f"compare-g32 {name}: rel {c['logits_rel_err']} > {SLICE_TOL}")
+    cmp["asym_g64"] = compare_checkpoint(
+        root, ids, "asym-g64", SEED + 2, {"group_size": 64, "sym": False},
+        lambda m: m.group_size == 64 and m.zero_const < 0 and kernel_route(m) == "K6")
+    want = {name: {"reference": 4 * 2, "qmm": 4 * 2 * (c["positions"] - 1)}  # K6 at every step
+            for name, c in cmp.items()}
+    out["compare_g32"] = compare_phase(card, "compare-g32", cmp, want,
+                                       all_layers_unchecked=full)
+    return out
+
+
+def planes_kernel_cases(dev, rng, shapes: dict) -> list:
+    """K4 and K5 against their plain versions at Llama-3-8B's projections
+    (``shapes``: proj -> K, N), 3-bit stitched at K1_MS, and the planar
+    layouts of ``PLANE_LAYOUTS`` at qkv, M = 8; group 128, symmetric (K4) and
+    with random zeros per group and column (K5); two runs each for equal
+    bits, the weights rotated through copies past the L2. No PyTorch call
+    takes 3/5/6/7-bit weights, so there is no library time; the reference
+    route (dequantize to bf16, then ``torch.matmul``) is timed at
+    ``PLANES_REF_M`` rows on the symmetric 3-bit weights, for the record."""
+    import torch
+
+    from gptqmodel_tpu_torch.ops import _build
+    from gptqmodel_tpu_torch.ops.qlinear import qlinear_forward_torch
+    from gptqmodel_tpu_torch.ops.qmatmul import (
+        qmatmul_planes, qmatmul_planes_asym, qmatmul_planes_asym_plain, qmatmul_planes_plain,
+    )
+    from gptqmodel_tpu_torch.ops.registry import kernel_route, post_init_module
+    from gptqmodel_tpu_torch.utils.testing import random_quant_linear
+
+    cases = []
+    variants = [(proj, 3, False, sym, K1_MS) for proj in shapes for sym in (True, False)]
+    variants += [("qkv", bits, planar, sym, (B,)) for bits, planar in PLANE_LAYOUTS
+                 for sym in (True, False)]
+    for proj, bits, planar, sym, ms in variants:
+        K, N = shapes[proj]
+        base = post_init_module(random_quant_linear(rng, K, N, bits, device=dev, sym=sym,
+                                                    planar=planar))
+        route = "K4" if sym else "K5"
+        require(kernel_route(base) == route and base.planar == planar,
+                f"{route} case {proj} {bits}-bit planar={planar} off its route")
+        # a symmetric module's zeros are not read: its one zero point is
+        wbytes = base.qweight.nbytes + base.scales.nbytes + (0 if sym else base.qzeros.nbytes)
+        mods = [base] + [dataclasses.replace(base, qweight=base.qweight.clone(),
+                                             scales=base.scales.clone(),
+                                             qzeros=base.qzeros.clone())
+                         for _ in range(copies_for(wbytes) - 1)]
+        kw = dict(bits=bits, group_size=128, planar=planar)
+        if sym:
+            name, fn, plain = "qmatmul_planes", qmatmul_planes, qmatmul_planes_plain
+            kw["zero_const"] = base.zero_const
+            ops = lambda i: (x, mods[i].qweight, mods[i].scales)
+        else:
+            name, fn, plain = ("qmatmul_planes_asym", qmatmul_planes_asym,
+                               qmatmul_planes_asym_plain)
+            ops = lambda i: (x, mods[i].qweight, mods[i].scales, mods[i].qzeros)
+        for M in ms:
+            x = torch.from_numpy(rng.standard_normal((M, K), dtype=np.float32)).to(dev).to(
+                torch.bfloat16)
+            before = _build.LAUNCHES[name]
+            y, y2 = fn(*ops(0), **kw), fn(*ops(0), **kw)
+            ref = plain(*ops(0), **kw)
+            torch.cuda.synchronize()
+            require(_build.LAUNCHES[name] == before + 2, f"{route} did not launch")
+            identical = torch.equal(y, y2)
+            rel, mx = errors(y, ref)
+            k = timed(lambda i: fn(*ops(i), **kw), len(mods))
+            pl_ = timed(lambda i: plain(*ops(i), **kw), len(mods), budget_ms=100.0)
+            b_ms, b_by = bound(x.nbytes + wbytes + y.nbytes, 2.0 * M * N * K)
+            case = {"kernel": name, "proj": proj, "bits": bits, "planar": planar, "sym": sym,
+                    "M": M, "K": K, "N": N, "rel_err": rel, "max_abs_err": mx,
+                    "identical_runs": identical, "ms": k["ms"], "wall_ms": k["wall_ms"],
+                    "plain_ms": pl_["ms"], "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": None,
+                    "library": "none exists: no PyTorch call takes 3/5/6/7-bit weights",
+                    "plain_wall_ms": pl_["wall_ms"], "weight_copies": len(mods)}
+            cases.append(case)
+            emit({"phase": "kernels", **case})
+            tol = K4_TOL if sym else K5_TOL
+            require(rel <= tol, f"{route} {proj} {bits}-bit planar={planar} M={M}: "
+                    f"rel {rel} > {tol}")
+            require(identical, f"{route} {proj} {bits}-bit planar={planar} M={M}: "
+                    "two runs differ")
+        if (bits, planar, sym) == (3, False, True):
+            x = torch.from_numpy(rng.standard_normal((PLANES_REF_M, K), dtype=np.float32)).to(
+                dev).to(torch.bfloat16)
+            r = timed(lambda i: qlinear_forward_torch(mods[i], x), len(mods), budget_ms=100.0)
+            b_ms, b_by = bound(x.nbytes + wbytes + 2 * PLANES_REF_M * N,
+                               2.0 * PLANES_REF_M * N * K)
+            case = {"kernel": "reference", "proj": proj, "bits": 3, "planar": False,
+                    "sym": True, "M": PLANES_REF_M, "K": K, "N": N, "ms": r["ms"],
+                    "wall_ms": r["wall_ms"], "bound_ms": b_ms, "bound_by": b_by,
+                    "route": "dequantize to bf16, then torch.matmul (no kernel of the port)"}
+            cases.append(case)
+            emit({"phase": "kernels", **case})
+        del base, mods
+    torch.cuda.empty_cache()
+    return cases
+
+
+def planes_phases(root: Path, card: str) -> dict:
+    """``planes-slice`` and ``compare-planes``: a 3-bit GPTQ v1 checkpoint
+    at Llama-3-8B's published widths and all 32 layers (symmetric, group 128,
+    stitched words, dense lm_head; random weights drawn on the card from the
+    seed, about 4.8 GB) through ``slice_phase``, every projection on K4; then
+    its first 2 layers and the 2-layer checkpoints of ``PLANE_COMPARES`` (K5
+    after the act-order gather, K4 on planar words, K5 over three planes),
+    each generated 8 tokens (counted) and held, kernel path against plain
+    path, within 1e-2."""
+    import torch
+
+    from gptqmodel_tpu_torch.ops import _build
+    from gptqmodel_tpu_torch.ops.registry import kernel_route
+    from gptqmodel_tpu_torch.utils.testing import LLAMA3_8B_CONFIG
+
+    cfg = LLAMA3_8B_CONFIG
+    L = cfg["num_hidden_layers"]
+    k4 = dict.fromkeys(_build.LAUNCHES, 0) | {"qmatmul_planes": 4 * L}  # qkv, o, gate_up, down
+    ids = np.random.default_rng([SEED, 9]).integers(0, cfg["vocab_size"], (B, T))
+    model, rec = slice_phase(
+        root, card, "planes-slice", ids,
+        {"bits": 3, "group_size": 128, "sym": True, "format": "gptq"},
+        lambda m: m.bits == 3 and not m.planar and kernel_route(m) == "K4", k4, k4)
+    out = {"planes_slice": rec}
+    cmp = {"3bit_sym": compare_layers(model.spec, model.params, ids) | {"kernel": "qmatmul_planes"}}
+    del model
+    torch.cuda.empty_cache()
+    for i, (name, (bits, fmt, sym, act, kernel)) in enumerate(PLANE_COMPARES.items()):
+        route = "K4" if sym else "K5"
+
+        def module_ok(m, bits=bits, fmt=fmt, act=act, route=route):
+            return (m.bits == bits and m.planar == (fmt == "gptq_p")
+                    and (m.act_perm is not None) == act and kernel_route(m) == route)
+
+        cmp[name] = compare_checkpoint(
+            root, ids, name, SEED + 3 + i,
+            {"bits": bits, "format": fmt, "sym": sym, "desc_act": act}, module_ok,
+            generate_kernel=kernel) | {"kernel": kernel}
+    want = {name: {c["kernel"]: 4 * 2 * c["positions"]}  # 4 per layer, prefill and each step
+            for name, c in cmp.items()}
+    out["compare_planes"] = compare_phase(card, "compare-planes", cmp, want)
     return out
 
 
@@ -1795,6 +1978,7 @@ def main() -> int:
     small_rng = np.random.default_rng([SEED, 400])
     cases += k6_kernel_cases(dev, small_rng, k1_shapes)
     cases += k7_kernel_cases(dev, small_rng, k1_shapes)
+    cases += planes_kernel_cases(dev, np.random.default_rng([SEED, 500]), k1_shapes)
     record["kernels"] = cases
 
     # ---------------------------------------------------------------- slice
@@ -1876,6 +2060,10 @@ def main() -> int:
     g32 = g32_phases(ROOT / "build", card)
     record.update(g32)
 
+    # ------------------------------------------ planes-slice, compare-planes
+    planes = planes_phases(ROOT / "build", card)
+    record.update(planes)
+
     # ------------------------------------------- quantize, compare-quantize
     with tempfile.TemporaryDirectory(prefix="llama3-8b-fp-", dir=ROOT / "build") as work:
         q_rec, state = quantize_phase(Path(work), QUANT_LAYERS, card)
@@ -1886,6 +2074,7 @@ def main() -> int:
         record["compare_quantize"] = cq_rec
         record["quantize_act"] = quantize_act_phase(Path(work), state, card)
         record["quantize_g32"] = quantize_g32_phase(Path(work), state, card)
+        record["quantize_planes"] = quantize_planes_phase(Path(work), state, card)
 
     # ------------------------------------- moe-slice, compare-moe, moe-routes
     torch.cuda.empty_cache()
@@ -1896,10 +2085,10 @@ def main() -> int:
     # -------------------------------------------------------------- summary
     main_counts = slice_recs[0]["generate_counts"]  # the bf16-KV generate
 
-    def per_step(kernel: str, parts: list[tuple[str, int]], **match) -> dict:
+    def per_step(kernel: str, parts: list[tuple[str, int]], bits: int = 4, **match) -> dict:
         sel = [(c, n) for c in cases for proj, n in parts
                if c["kernel"] == kernel and c["M"] == B and c["proj"] == proj
-               and c.get("bits", 4) == 4 and all(c[k] == v for k, v in match.items())]
+               and c.get("bits", 4) == bits and all(c[k] == v for k, v in match.items())]
         total = lambda key: sum(c[key] * n for c, n in sel)
         return {"ms": total("ms"), "plain_ms": total("plain_ms"),
                 "bound_ms": total("bound_ms"),
@@ -1949,6 +2138,28 @@ def main() -> int:
          "max_abs_err": max(c["max_abs_err"] for c in cases if c["kernel"] == "qmm"),
          **per_step("qmm", [("qkv", L), ("o", L), ("gate_up", L), ("down", L)],
                     group_size=32, sym=True)},
+        {"name": "qmatmul_planes (K4)", "route": "cuda",
+         "source": "gptqmodel_tpu_torch/csrc/qmatmul_planes.cu",
+         "replaces": "gptqmodel_tpu/ops/pallas_qmatmul.py:385",
+         "launches": planes["planes_slice"]["generate_counts"]["qmatmul_planes"],
+         "launches_per": "planes-slice generate run",
+         "ms_per": "decode step (3-bit stitched, symmetric)",
+         "max_abs_err": max(c["max_abs_err"] for c in cases if c["kernel"] == "qmatmul_planes"),
+         **per_step("qmatmul_planes", [("qkv", L), ("o", L), ("gate_up", L), ("down", L)],
+                    bits=3, planar=False)},
+        {"name": "qmatmul_planes_asym (K5)", "route": "cuda",
+         "source": "gptqmodel_tpu_torch/csrc/qmatmul_planes.cu",
+         "replaces": "gptqmodel_tpu/ops/pallas_qmatmul.py:421",
+         "launches": sum(c["generate_counts"]["qmatmul_planes_asym"]
+                         for c in planes["compare_planes"].values()
+                         if isinstance(c, dict) and "generate_counts" in c),
+         "launches_per": (f"compare-planes generate runs ({QUANT_ACT_NEW} tokens, 2 layers: "
+                          "3-bit sym=False desc_act=True, 7-bit gptq_p sym=False)"),
+         "ms_per": "decode step (3-bit stitched, zeros per group, 32 layers)",
+         "max_abs_err": max(c["max_abs_err"] for c in cases
+                            if c["kernel"] == "qmatmul_planes_asym"),
+         **per_step("qmatmul_planes_asym", [("qkv", L), ("o", L), ("gate_up", L), ("down", L)],
+                    bits=3, planar=False)},
         {"name": "qmlp (K2)", "route": "cuda",
          "source": "gptqmodel_tpu_torch/csrc/qmlp.cu",
          "replaces": "gptqmodel_tpu/ops/pallas_qmlp.py:84",

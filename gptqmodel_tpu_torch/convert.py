@@ -28,8 +28,11 @@ def to_torch(a, device) -> torch.Tensor:
 
 
 def convert_quant_linear(p, device="cuda") -> QuantLinear:
-    """A JAX ``QuantLinear`` in the interchange layout (before its
-    ``post_init_module``, which may re-pack for the TPU kernel)."""
+    """A JAX ``QuantLinear`` in the storage layout (stitched or planar),
+    before its ``post_init_module``. After it the JAX module may hold the TPU
+    kernels' runtime repack (``rt_layout``: K1's permuted words, or at 3, 5,
+    6 and 7 bits the plane-split words of ``repack_rt_planes``), which is no
+    storage layout: such a module is refused, never passed on."""
     device = resolve_device(device)
     if getattr(p, "rt_layout", False) or getattr(p, "act_perm", None) is not None:
         raise ValueError("convert the module before the JAX post-init re-packs it")
@@ -38,7 +41,7 @@ def convert_quant_linear(p, device="cuda") -> QuantLinear:
         qweight=to_torch(p.qweight, device), qzeros=to_torch(p.qzeros, device),
         scales=to_torch(p.scales, device), g_idx=opt(p.g_idx), bias=opt(p.bias),
         bits=p.bits, group_size=p.group_size, in_features=p.in_features,
-        out_features=p.out_features, sym=p.sym, v1=p.v1,
+        out_features=p.out_features, sym=p.sym, v1=p.v1, planar=p.planar,
     )
 
 

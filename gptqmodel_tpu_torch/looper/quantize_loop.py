@@ -14,9 +14,10 @@ The GPTQ path of the JAX package's ``looper/quantize_loop.py``
   checkpoint's dtype, replaces the dense one (true-sequential).
 - The quantized layer is replayed to make the next layer's inputs.
 
-Hidden states stay on the device. The port packs inline and writes no file;
-the JAX package's pack worker threads, journal and streaming CSV are later
-work (ROADMAP queue 1, item 11).
+Hidden states stay on the device. The port packs inline (planar for
+``format == "gptq_p"``, as the JAX loop packs at ``quantize_loop.py:851``)
+and writes no file; the JAX package's pack worker threads, journal and
+streaming CSV are later work (ROADMAP queue 1, "GPTQ leftovers").
 """
 
 from __future__ import annotations
@@ -62,32 +63,28 @@ def check_supported(qcfg: QuantizeConfig) -> None:
     """Raise for what this slice of the port does not quantize, naming where
     it comes. Nothing is dropped silently."""
     later = {
-        "gptaq": (qcfg.gptaq is not None, "GPTAQ", 14),
-        "foem": (qcfg.foem is not None, "FOEM", 14),
-        "mse": (qcfg.mse > 0, "the MSE grid search", 14),
-        "act_group_aware": (qcfg.act_group_aware, "GAR reordering", 14),
-        "rotation": (qcfg.rotation is not None, "rotation / Hadamard", 14),
-        "smooth": (qcfg.smooth is not None, "the Smoother", 14),
-        "fallback_smooth": (qcfg.fallback_smooth is not None, "fallback smoothing", 14),
-        "adapter": (qcfg.adapter is not None, "EoRA adapters", 14),
-        "tp_pad": (qcfg.tp_pad, "the TP padder", 16),
-        "lm_head": (qcfg.lm_head, "lm_head quantization", 11),
-        "journal": (qcfg.journal is not None, "the quantization journal", 11),
-        "dynamic": (bool(qcfg.dynamic), "per-module dynamic overrides", 11),
+        "gptaq": (qcfg.gptaq is not None, "GPTAQ"),
+        "foem": (qcfg.foem is not None, "FOEM"),
+        "mse": (qcfg.mse > 0, "the MSE grid search"),
+        "act_group_aware": (qcfg.act_group_aware, "GAR reordering"),
+        "rotation": (qcfg.rotation is not None, "rotation / Hadamard"),
+        "smooth": (qcfg.smooth is not None, "the Smoother"),
+        "fallback_smooth": (qcfg.fallback_smooth is not None, "fallback smoothing"),
+        "adapter": (qcfg.adapter is not None, "EoRA adapters"),
+        "tp_pad": (qcfg.tp_pad, "the TP padder"),
+        "lm_head": (qcfg.lm_head, "lm_head quantization"),
+        "journal": (qcfg.journal is not None, "the quantization journal"),
+        "dynamic": (bool(qcfg.dynamic), "per-module dynamic overrides"),
     }
     if qcfg.method != "gptq":
         raise NotImplementedError(
             f"method {qcfg.method!r}: the port quantizes GPTQ so far; other methods come "
-            "with a later slice (ROADMAP queue 1, item 14)")
-    if qcfg.bits not in (2, 4, 8):
-        raise NotImplementedError(
-            f"bits={qcfg.bits}: the port packs 2, 4 and 8 bits; 3, 5, 6 and 7 come with "
-            "the port of K4/K5 (ROADMAP queue 1, item 2)")
-    for name, (on, what, item) in later.items():
+            'with a later slice (ROADMAP queue 1, "Other quantization methods and formats")')
+    for name, (on, what) in later.items():
         if on:
             raise NotImplementedError(
                 f"QuantizeConfig.{name}: {what} comes with a later slice of the port "
-                f"(ROADMAP queue 1, item {item})")
+                '(ROADMAP queue 1, "GPTQ leftovers")')
 
 
 def _get(tree, path: str):
@@ -231,7 +228,7 @@ def _quantize_group(grp: _Group, lp: dict, G: torch.Tensor, n_rows: float, layer
         qlayer_mods[m] = make_quant_linear(
             Q=res.Q[sl], scales=res.scales[:, sl], zeros=res.zeros[:, sl], g_idx=res.g_idx,
             bias=d.get("bias"), bits=qcfg.bits, group_size=qcfg.group_size, sym=qcfg.sym,
-            device=device)
+            planar=qcfg.format == "gptq_p", device=device)
         # true-sequential: later subsets and the replay see the quantized weight
         d["weight"] = res.Wq[sl].to(d["weight"].dtype)
         quant_log.append({

@@ -102,7 +102,7 @@ class BaseQModel:
         if self.spec.model_type != "llama":
             raise NotImplementedError(
                 f"quantizing {self.spec.model_type}: the port quantizes llama so far; "
-                "MoE quantization is ROADMAP queue 1, item 12")
+                'MoE quantization is ROADMAP queue 1, "MoE quantization, then MoE breadth"')
         if not isinstance(calibration, CalibrationBatches):
             calibration = prepare_calibration(
                 calibration, batch_size=batch_size, max_length=max_length,

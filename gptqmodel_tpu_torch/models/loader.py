@@ -1,9 +1,11 @@
-"""Checkpoint reader -> params tree, for llama checkpoints, dense or GPTQ v1.
+"""Checkpoint reader -> params tree, for llama checkpoints, dense or GPTQ.
 
 The llama subset of the JAX package's ``models/loader.py``: a sharded
 safetensors checkpoint becomes nested dicts that mirror the HF tensor names
 (decoder layers as a list), dense tensors as they are stored and packed
-modules as ``QuantLinear``, with the v1 zero points converted to v2 at load.
+modules as ``QuantLinear``. GPTQ v1 (``format == "gptq"``, 2/3/4/8 bits)
+has its zero points converted to v2 at load; planar gptq_p (any width, v2
+zeros on disk) is read as it is, ``planar=True``.
 Each tensor moves to ``device`` as it is read. ``layer_filter`` and
 ``skip_layers`` stream an unquantized checkpoint one decoder layer at a time,
 for quantization.
@@ -98,16 +100,19 @@ def build_params_tree(reader: CheckpointReader, qcfg: QuantizeConfig | None,
 
 def _load_quant_linear(reader: CheckpointReader, leaves: dict[str, str],
                        qcfg: QuantizeConfig) -> QuantLinear:
-    if qcfg.format != "gptq" or qcfg.method != "gptq":
+    if qcfg.format not in ("gptq", "gptq_p") or qcfg.method != "gptq":
         raise NotImplementedError(
-            f"format {qcfg.format!r} / method {qcfg.method!r}: the port loads GPTQ v1 so far")
+            f"format {qcfg.format!r} / method {qcfg.method!r}: the port loads GPTQ v1 and "
+            "gptq_p so far")
     bits = qcfg.bits
     qweight = reader.get(leaves["qweight"])
     scales = reader.get(leaves["scales"])
     in_f = qweight.shape[0] * 32 // bits
     out_f = scales.shape[1]
-    # v1 on disk -> v2 (true zeros) once at load, the runtime format
-    qzeros = packing.convert_qzeros_v1_to_v2(reader.get(leaves["qzeros"]), bits)
+    planar = qcfg.format == "gptq_p"  # v2 zeros on disk (JAX loader.py:298-303)
+    qzeros = reader.get(leaves["qzeros"])
+    if not planar:  # v1 on disk -> v2 (true zeros) once at load, the runtime format
+        qzeros = packing.convert_qzeros_v1_to_v2(qzeros, bits)
     g = qcfg.group_size if qcfg.group_size > 0 else in_f
     g_idx = reader.get(leaves["g_idx"]) if "g_idx" in leaves else None
     if g_idx is not None and torch.equal(g_idx.long(), torch.arange(in_f) // g):
@@ -116,7 +121,7 @@ def _load_quant_linear(reader: CheckpointReader, leaves: dict[str, str],
         qweight=qweight, qzeros=qzeros, scales=scales, g_idx=g_idx,
         bias=reader.get(leaves["bias"]) if "bias" in leaves else None,
         bits=bits, group_size=qcfg.group_size, in_features=in_f, out_features=out_f,
-        sym=qcfg.sym, v1=False,
+        sym=qcfg.sym, v1=False, planar=planar,
     )
 
 

@@ -6,7 +6,8 @@ is ``["model", "layers", "#", {submodule: (leaves)}]``: segments before
 ``#`` are the path to the decoder-layer list; a leaf ``"name:N"`` is
 quantized in subset ``N`` (true-sequential stage), ``"name:!"`` is
 capture-only, and a leaf named like its parent key is the parent module.
-Expert (MoE) subtrees come with the MoE slice (ROADMAP queue 1, item 12).
+Expert (MoE) subtrees come with the MoE slice (ROADMAP queue 1, "MoE
+quantization, then MoE breadth").
 
 For llama this gives two subsets per layer, ``[q, k, v, gate, up]`` then
 ``[o, down]``, and four input groups (qkv, gate_up, o, down): modules of one

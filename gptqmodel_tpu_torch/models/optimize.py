@@ -41,7 +41,7 @@ def _can_fuse(mods: list) -> bool:
         return False
     a = mods[0]
     return all(
-        m.bits == a.bits and m.group_size == a.group_size
+        m.bits == a.bits and m.group_size == a.group_size and m.planar == a.planar
         and m.in_features == a.in_features and m.v1 == a.v1 and _same_order(m, a)
         and (m.bias is None) == (a.bias is None)
         for m in mods

@@ -2,7 +2,8 @@
 
 The JAX package's ``models/writer.py`` for ``QuantLinear`` and dense leaves:
 ``flatten_params`` turns the tree back into HF tensor names (a packed module
-into qweight, qzeros in the v1 interchange form, scales, g_idx and bias;
+into qweight, qzeros in the v1 interchange form (planar gptq_p words and
+their v2 zeros as they are), scales, g_idx and bias;
 ``_``-prefixed runtime entries are skipped, and the rows of an act-order
 module go back to the order they were loaded in, without its ``act_perm``), ``_write_shards`` splits them by
 size in the same order and under the same names, and ``save_quantized`` also
@@ -44,7 +45,9 @@ def flatten_params(tree, prefix: str = "", out: dict | None = None,
         out = {}
     if isinstance(tree, QuantLinear):
         qzeros = tree.qzeros
-        if not tree.v1 and v1_zeros:
+        if tree.planar:
+            pass  # planar zeros are v2 on disk too; words saved as they are
+        elif not tree.v1 and v1_zeros:
             qzeros = packing.pack_qzeros(packing.unpack_qzeros(qzeros, tree.bits), tree.bits,
                                          v1=True)
         elif tree.v1 and not v1_zeros:
@@ -52,8 +55,8 @@ def flatten_params(tree, prefix: str = "", out: dict | None = None,
         qweight = tree.qweight
         if tree.act_perm is not None:  # runtime group order -> the rows as loaded
             inv = torch.argsort(tree.act_perm.long())
-            qweight = packing.pack_qweight(packing.unpack_qweight(qweight, tree.bits)[inv],
-                                           tree.bits)
+            codes = packing.unpack_qweight(qweight, tree.bits, planar=tree.planar)
+            qweight = packing.pack_qweight(codes[inv], tree.bits, planar=tree.planar)
         out[f"{prefix}.qweight"] = qweight.cpu()
         out[f"{prefix}.qzeros"] = qzeros.cpu()
         out[f"{prefix}.scales"] = tree.scales.cpu()

@@ -35,7 +35,8 @@ LIB_NAME = "libgptqmodel_tpu_torch.so"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES = {"qmatmul": 0, "qmatmul_asym": 0, "qmatmul_fused": 0, "qmm": 0, "qmlp": 0,
+LAUNCHES = {"qmatmul": 0, "qmatmul_asym": 0, "qmatmul_fused": 0, "qmm": 0,
+            "qmatmul_planes": 0, "qmatmul_planes_asym": 0, "qmlp": 0,
             "gptq_whole_solve": 0, "gptq_block_inner": 0, "qmoe_e2e": 0, "qmoe_mlp_dyn": 0,
             "qmoe_mlp": 0, "qmoe_matmul": 0, "reference": 0}
 # what the last build did: commands, seconds, and the ptxas lines per source
@@ -116,6 +117,10 @@ def lib() -> ctypes.CDLL:
             handle.gqt_qmatmul_fused.restype = i
             handle.gqt_qmm.argtypes = [vp, i, i, vp, vp, vp, i, i, f, i, vp, vp]
             handle.gqt_qmm.restype = i
+            handle.gqt_qmatmul_planes.argtypes = [vp, i, i, vp, vp, i, i, f, i, i, vp, vp]
+            handle.gqt_qmatmul_planes.restype = i
+            handle.gqt_qmatmul_planes_asym.argtypes = [vp, i, i, vp, vp, vp, i, i, i, i, vp, vp]
+            handle.gqt_qmatmul_planes_asym.restype = i
             handle.gqt_qmlp.argtypes = [vp, i, i, i, vp, vp, f, vp, vp, f, i, i, vp, vp, vp]
             handle.gqt_qmlp.restype = i
             handle.gqt_gptq_whole_solve.argtypes = [vp] * 4 + [i] * 4 + [f, i] + [vp] * 6

@@ -23,7 +23,9 @@ class QuantLinear:
     """A packed quantized linear layer.
 
     ``g_idx`` is None when groups are contiguous. ``v1`` marks qzeros still in
-    the v1 (-1 offset) form; the loader converts them to v2.
+    the v1 (-1 offset) form; the loader converts them to v2. ``planar``
+    marks the gptq_p layout of ``qweight`` and ``qzeros`` (``pack.py``; 5, 6
+    and 7 bits have no other, planar zeros are always v2).
     ``zero_const`` is the uniform zero point found by
     ``registry.post_init_module`` (-1 when the zeros differ), which the
     symmetric kernels need. ``act_perm`` is runtime-only and never exported:
@@ -31,8 +33,8 @@ class QuantLinear:
     post-init stored the ``qweight`` rows in group order; the forward gathers
     x's columns by it and the writer puts the rows back."""
 
-    qweight: torch.Tensor  # int32 [in/pf, out]
-    qzeros: torch.Tensor  # int32 [groups, out/pf]
+    qweight: torch.Tensor  # int32 [in*bits/32, out]
+    qzeros: torch.Tensor  # int32 [groups, out*bits/32]
     scales: torch.Tensor  # float16 [groups, out]
     g_idx: torch.Tensor | None  # int32 [in] or None
     bias: torch.Tensor | None
@@ -44,6 +46,7 @@ class QuantLinear:
     sym: bool = True
     v1: bool = False
     zero_const: float = -1.0
+    planar: bool = False
 
     def to(self, device) -> "QuantLinear":
         move = lambda t: None if t is None else t.to(device)
@@ -69,15 +72,20 @@ def make_quant_linear(
     group_size: int,
     sym: bool = True,
     v1: bool = False,
+    planar: bool = False,
     device: str | torch.device = "cuda",
 ) -> QuantLinear:
     """Pack integer codes and group parameters (numpy arrays, or tensors,
-    packed where they lie) into a QuantLinear on ``device``."""
+    packed where they lie) into a QuantLinear on ``device``; 5, 6 and 7 bits
+    pack planar whatever ``planar`` says (JAX ``ops/qlinear.py:118-124``)."""
     Q = _tensor(Q)
     out_f, in_f = Q.shape
     g = in_f if group_size in (-1, None) else group_size
-    qweight = packing.pack_qweight(Q.T.contiguous(), bits)
-    qzeros = packing.pack_qzeros(_tensor(zeros), bits, v1=v1)
+    planar = planar or bits in packing.PLANAR_ONLY_BITS
+    if planar and v1:
+        raise ValueError("planar (gptq_p) zeros are always v2")
+    qweight = packing.pack_qweight(Q.T.contiguous(), bits, planar=planar)
+    qzeros = packing.pack_qzeros(_tensor(zeros), bits, v1=v1, planar=planar)
     if g_idx is not None:
         g_idx = _tensor(g_idx).to(torch.int32)
         if torch.equal(g_idx.long(), torch.arange(in_f, device=g_idx.device) // g):
@@ -89,16 +97,16 @@ def make_quant_linear(
         g_idx=g_idx,
         bias=None if bias is None else _tensor(bias),
         bits=bits, group_size=group_size, in_features=in_f, out_features=out_f,
-        sym=sym, v1=v1,
+        sym=sym, v1=v1, planar=planar,
     ).to(resolve_device(device))
 
 
 def dequantize_weight(p: QuantLinear, dtype=torch.float32) -> torch.Tensor:
     """Unpack and dequantize to a dense ``w [in, out]`` (``y = x @ w``)."""
-    codes = packing.unpack_qweight(p.qweight, p.bits)
+    codes = packing.unpack_qweight(p.qweight, p.bits, planar=p.planar)
     if p.act_perm is not None:  # runtime group order -> the order of g_idx
         codes = codes[torch.argsort(p.act_perm.long())]
-    zeros = packing.unpack_qzeros(p.qzeros, p.bits, v1=p.v1)
+    zeros = packing.unpack_qzeros(p.qzeros, p.bits, v1=p.v1, planar=p.planar)
     scales = p.scales.to(dtype)
     if p.g_idx is not None:
         gi = p.g_idx.long()

@@ -1,4 +1,4 @@
-"""K1, K3, K7 and K6: dequant-matmul ``y = x @ dequant(qweight)`` on the card.
+"""K1, K3, K7, K6, K4 and K5: dequant-matmul ``y = x @ dequant(qweight)`` on the card.
 
 K1, K3 and K7 (``csrc/qmatmul.cu``, arithmetic in ``csrc/qmm_common.cuh``)
 read the GPTQ interchange layout directly and take contiguous groups of a
@@ -22,16 +22,29 @@ multiple of 128, 2, 4 or 8 bits, bf16 activations and fp16 scales.
   element, then a product with float32 sums. The zero points are the v2
   ``qzeros`` words as stored, or the module's one ``zero_const``.
 
+- K4 (``qmatmul_planes``, ``csrc/qmatmul_planes.cu``) replaces
+  ``_qmm_rtp_sym_kernel`` (``:385``, with ``_rtp_accumulate`` ``:345``;
+  reached with ``rt=True, zero_const>=0`` at 3, 5, 6 and 7 bits): one
+  uniform zero point. K5 (``qmatmul_planes_asym``) replaces
+  ``_qmm_rtp_kernel`` (``:421``): a zero point per group and column, read
+  from the v2 ``qzeros`` words in the module's layout. Both read the codes in
+  their storage layout, 3-bit stitched or planar (``pack.py``), in place;
+  the TPU kernels read a plane-split runtime repack of them
+  (``pack.repack_rt_planes``), which the port has not. Their arithmetic is
+  K1's and K3's: per-group partial dots of the codes, then the zero-point
+  correction.
+
 The TPU kernels' ``rt_supported`` (``:456``) also asks ``K % (8*g) == 0``,
-for their 8-group K tiles; the CUDA kernels split K by whole groups, so they
-need only ``K % g == 0``: the same arithmetic, on another tile. K1, K3 and K7
-keep the fp16 scales as stored, where the TPU kernels round them to bf16
-(``:683``, ``:692``). K6 rounds them to bf16, as its TPU kernel and the
-dequantize-then-matmul reference do.
+for their 8-group K tiles, and ``K % (16*g) == 0`` at 3, 5, 6 and 7 bits,
+for 16-group tiles; the CUDA kernels split K by whole groups, so they need
+only ``K % g == 0``: the same arithmetic, on another tile. K1, K3, K7, K4 and
+K5 keep the fp16 scales as stored, where the TPU kernels round them (and
+K5's zeros) to bf16 (``:656``, ``:666-667``, ``:683``, ``:692``). K6 rounds
+them to bf16, as its TPU kernel and the dequantize-then-matmul reference do.
 
 Each wrapper launches its kernel for a CUDA tensor and uses its plain version
 only for a tensor on the CPU. The plain versions compute the kernels' sums
-in float32 (K1 and K3: per-group partial dots, then the zero-point
+in float32 (K1, K3, K4 and K5: per-group partial dots, then the zero-point
 correction; K7 and K6: products of bf16 weights, K7 then its correction), in
 another order; the kernels' products are exact, so the two differ by float32
 summation order before the final rounding to the activation type. K7's and
@@ -47,6 +60,7 @@ from gptqmodel_tpu_torch.ops import _build
 from gptqmodel_tpu_torch.ops.pack import unpack_qweight, unpack_qzeros
 
 KERNEL_BITS = (2, 4, 8)
+PLANE_BITS = (3, 5, 6, 7)  # K4 and K5
 
 
 def qmatmul_supported(bits: int, group_size: int, K: int, N: int) -> bool:
@@ -56,13 +70,24 @@ def qmatmul_supported(bits: int, group_size: int, K: int, N: int) -> bool:
     return bits in KERNEL_BITS and g % 128 == 0 and K % g == 0 and N % 8 == 0
 
 
-def grouped_dot_f32(x, qweight, scales, *, bits, group_size, zero_const=None, zeros=None):
+def qmatmul_planes_supported(bits: int, group_size: int, K: int, N: int) -> bool:
+    """K4's and K5's contract: 3, 5, 6 or 7 bits, contiguous groups of a
+    multiple of 128 (whole 32-row units; the TPU kernel's ``rt_supported``
+    asks the same), ``K % g == 0``, and N a multiple of 32, so that a row of
+    3-bit zeros holds whole 3-word units."""
+    g = group_size if group_size > 0 else K
+    return bits in PLANE_BITS and g % 128 == 0 and K % g == 0 and N % 32 == 0
+
+
+def grouped_dot_f32(x, qweight, scales, *, bits, group_size, zero_const=None, zeros=None,
+                    planar=False):
     """float32 ``x @ dequant(qweight)`` as the kernels sum it:
     ``Σ_g (x_g @ codes_g)·s_g − (Σ x_g)·(z_g·s_g)``, with ``z_g`` the uniform
-    ``zero_const`` (K1) or row ``g`` of the ``[G, N]`` v2 ``zeros`` (K3)."""
+    ``zero_const`` (K1, K4) or row ``g`` of the ``[G, N]`` v2 ``zeros`` (K3,
+    K5); ``planar`` reads gptq_p words."""
     M, K = x.shape
     g = group_size if group_size > 0 else K
-    codes = unpack_qweight(qweight, bits).to(torch.float32)  # [K, N]
+    codes = unpack_qweight(qweight, bits, planar=planar).to(torch.float32)  # [K, N]
     xf = x.to(torch.float32)
     sf = scales.to(torch.float32)
     zs = sf * (zero_const if zeros is None else zeros.to(torch.float32))  # exact
@@ -84,7 +109,8 @@ def qmatmul_plain(x, qweight, scales, *, bits, group_size, zero_const):
 def _check_operands(x, qweight, scales, *, bits, group_size, zero_const=None, qzeros=None,
                     name="K1", supported=None):
     """Raise on what the kernel does not take: K1 and K7 (``zero_const``), K3
-    (``qzeros``) or K6 (``qzeros``, and ``supported=qmm_supported``)."""
+    (``qzeros``), K6 (``qzeros``, and ``supported=qmm_supported``), K4 and K5
+    (``supported=qmatmul_planes_supported``, with or without ``qzeros``)."""
     M, K = x.shape
     N = qweight.shape[1]
     if not (supported or qmatmul_supported)(bits, group_size, K, N):
@@ -262,4 +288,80 @@ def qmm(x, qweight, scales, qzeros, *, bits, group_size, zero_const):
     )
     _build.check(rc, "qmm")
     _build.LAUNCHES["qmm"] += 1
+    return out
+
+
+def _check_planes(x, qweight, scales, *, bits, group_size, planar, zero_const=None,
+                  qzeros=None, name):
+    _check_operands(x, qweight, scales, bits=bits, group_size=group_size,
+                    zero_const=zero_const, qzeros=qzeros, name=name,
+                    supported=qmatmul_planes_supported)
+    if not planar and bits != 3:
+        raise ValueError(f"{name}: {bits}-bit words exist only in the planar layout")
+
+
+def qmatmul_planes_plain(x, qweight, scales, *, bits, group_size, zero_const, planar):
+    """Plain PyTorch version of K4, rounded to the activation type."""
+    return grouped_dot_f32(x, qweight, scales, bits=bits, group_size=group_size,
+                           zero_const=zero_const, planar=planar).to(x.dtype)
+
+
+def qmatmul_planes(x, qweight, scales, *, bits, group_size, zero_const, planar):
+    """K4: ``x [M, K] @ dequant(qweight)`` -> ``[M, N]`` in x's type, for 3,
+    5, 6 or 7-bit words (stitched 3-bit, or ``planar``) with one uniform zero
+    point.
+
+    A CUDA tensor goes to the kernel (or raises); a CPU tensor to
+    ``qmatmul_planes_plain``."""
+    if x.device.type == "cpu":
+        return qmatmul_planes_plain(x, qweight, scales, bits=bits, group_size=group_size,
+                                    zero_const=zero_const, planar=planar)
+    _check_planes(x, qweight, scales, bits=bits, group_size=group_size, planar=planar,
+                  zero_const=zero_const, name="K4")
+    M, K = x.shape
+    N = qweight.shape[1]
+    g = group_size if group_size > 0 else K
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    if M == 0:
+        return out
+    rc = _build.lib().gqt_qmatmul_planes(
+        x.data_ptr(), M, K, qweight.data_ptr(), scales.data_ptr(), N, g,
+        float(zero_const), bits, int(planar), out.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(rc, "qmatmul_planes")
+    _build.LAUNCHES["qmatmul_planes"] += 1
+    return out
+
+
+def qmatmul_planes_asym_plain(x, qweight, scales, qzeros, *, bits, group_size, planar):
+    """Plain PyTorch version of K5, rounded to the activation type."""
+    zeros = unpack_qzeros(qzeros, bits, planar=planar)
+    return grouped_dot_f32(x, qweight, scales, bits=bits, group_size=group_size,
+                           zeros=zeros, planar=planar).to(x.dtype)
+
+
+def qmatmul_planes_asym(x, qweight, scales, qzeros, *, bits, group_size, planar):
+    """K5: K4 with a zero point per group and column (``qzeros``: v2 words
+    ``[K/g, N*bits/32]`` in the weights' layout) -> ``[M, N]`` in x's type.
+
+    A CUDA tensor goes to the kernel (or raises); a CPU tensor to
+    ``qmatmul_planes_asym_plain``."""
+    if x.device.type == "cpu":
+        return qmatmul_planes_asym_plain(x, qweight, scales, qzeros, bits=bits,
+                                         group_size=group_size, planar=planar)
+    _check_planes(x, qweight, scales, bits=bits, group_size=group_size, planar=planar,
+                  qzeros=qzeros, name="K5")
+    M, K = x.shape
+    N = qweight.shape[1]
+    g = group_size if group_size > 0 else K
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    if M == 0:
+        return out
+    rc = _build.lib().gqt_qmatmul_planes_asym(
+        x.data_ptr(), M, K, qweight.data_ptr(), scales.data_ptr(), qzeros.data_ptr(), N, g,
+        bits, int(planar), out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(rc, "qmatmul_planes_asym")
+    _build.LAUNCHES["qmatmul_planes_asym"] += 1
     return out

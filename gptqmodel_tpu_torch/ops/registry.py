@@ -8,18 +8,21 @@ package's registry takes on the TPU (``gptqmodel_tpu/ops/registry.py:91-162,
 | --- | --- |
 | contiguous or balanced act-order groups inside K1's contract (2/4/8 bits, groups a multiple of 128, ``qmatmul_supported``), one uniform zero point | K1 (``qmatmul``), after ``x[:, act_perm]`` for act-order; K7 (``qmatmul_fused``) instead under ``GPTQ_TPU_RT_FUSED=1`` |
 | the same with a zero point per group (``zero_const < 0``) | K3 (``qmatmul_asym``), after the same gather |
+| contiguous or balanced act-order groups of 3/5/6/7 bits inside K4's contract (groups a multiple of 128, N a multiple of 32, ``qmatmul_planes_supported``), stitched 3-bit or planar, one uniform zero point | K4 (``qmatmul_planes``), after the same gather |
+| the same with a zero point per group | K5 (``qmatmul_planes_asym``), after the same gather |
 | contiguous 2/4/8-bit groups outside K1's contract but inside K6's (``qmm_supported``: groups of 16, 32 or 64, N a multiple of 128), at most ``PALLAS_MAX_M`` rows | K6 (``qmm``) |
-| the same, more rows; contiguous 2/4/8-bit groups outside K6's contract too; any other ``g_idx`` (ragged, or act-order outside K1's contract) | the dequantize-then-matmul reference ``qlinear_forward_torch`` (the JAX package's XLA path) |
-| 3/5/6/7 bits | ``NotImplementedError`` naming the TPU kernel whose port a later slice brings (K4 or K5) |
+| the same, more rows; contiguous groups outside every kernel's contract (3/5/6/7 bits at groups that are not a multiple of 128 among them); any other ``g_idx`` (ragged, or act-order outside K1's or K4's contract); planar 2/4/8-bit words | the dequantize-then-matmul reference ``qlinear_forward_torch`` (the JAX package's XLA path) |
 
-K1 and K3 modules stay on their kernel at every M, prefill included, as the
-reference's rt-layout modules do; K6 modules take the reference above
+K1, K3, K4 and K5 modules stay on their kernel at every M, prefill
+included, as the reference's rt-layout modules do; K6 modules take the reference above
 ``PALLAS_MAX_M`` rows, where the dequantized weight amortizes (JAX
 ``registry.py:119-150``). ``GPTQ_TPU_RT_FUSED`` is read at each forward, the
 JAX package's own switch. Each wrapper launches its kernel for a CUDA
-tensor and runs its plain version only for a CPU tensor; on the CPU a module
-of a later kernel runs the reference. On a CUDA tensor the reference route
-counts ``LAUNCHES["reference"]``. K2 (``qmlp``) takes an MLP only when
+tensor and runs its plain version only for a CPU tensor. On a CUDA tensor
+the reference route counts ``LAUNCHES["reference"]``. The port's K4 and K5
+take any ``K % g == 0`` where the TPU kernels' tiles ask ``K % (16*g) ==
+0`` (``ops/qmatmul.py``), so modules the JAX package runs on XLA for that
+reason alone run K4 or K5 here. K2 (``qmlp``) takes an MLP only when
 both its modules are K1's, with no act-order permutation (the JAX package's
 ``qmlp_forward`` refuses act-order and per-group zeros alike); it ignores
 ``GPTQ_TPU_RT_FUSED``, as the JAX package's does.
@@ -43,10 +46,13 @@ from gptqmodel_tpu_torch.ops import _build
 from gptqmodel_tpu_torch.ops import pack as packing
 from gptqmodel_tpu_torch.ops.qlinear import QuantLinear, qlinear_forward_torch
 from gptqmodel_tpu_torch.ops.qmatmul import (
-    KERNEL_BITS,
+    PLANE_BITS,
     qmatmul,
     qmatmul_asym,
     qmatmul_fused,
+    qmatmul_planes,
+    qmatmul_planes_asym,
+    qmatmul_planes_supported,
     qmatmul_supported,
     qmm,
     qmm_supported,
@@ -79,26 +85,36 @@ def _act_order_perm(p: QuantLinear) -> torch.Tensor | None:
     return torch.argsort(gi, stable=True).to(torch.int32)
 
 
+def _rt_contract(p: QuantLinear) -> bool:
+    """Inside K1's/K3's or K4's/K5's contract: the modules the JAX package
+    prepares for its rt kernels (``registry.py:274-279``; planar storage
+    only at 3/5/6/7 bits), without the TPU tile rule."""
+    if p.bits in PLANE_BITS:
+        return qmatmul_planes_supported(p.bits, p.group_size, p.in_features, p.out_features)
+    return not p.planar and qmatmul_supported(p.bits, p.group_size, p.in_features,
+                                              p.out_features)
+
+
 def post_init_module(p: QuantLinear) -> QuantLinear:
     """Runtime preparation: v2 zeros, fp16 scales, the uniform zero point
-    (``zero_const``, -1 when the zeros differ) that K1 and K2 need, and for a
-    balanced act-order module inside the kernels' contract the ``qweight``
-    rows permuted into group order on the module's device, with ``act_perm``
-    (JAX ``registry.py:265-281``). Otherwise the packed weights stay in the
-    interchange layout. ``g_idx`` stays for the export."""
+    (``zero_const``, -1 when the zeros differ) that K1, K2 and K4 need, and
+    for a balanced act-order module inside the kernels' contract the
+    ``qweight`` rows permuted into group order on the module's device, in
+    its own layout (stitched or planar), with ``act_perm`` (JAX
+    ``registry.py:265-281``). Otherwise the packed weights stay in the
+    storage layout. ``g_idx`` stays for the export."""
     if p.act_perm is not None:
         return p
-    zeros = packing.unpack_qzeros(p.qzeros, p.bits, v1=p.v1)
+    zeros = packing.unpack_qzeros(p.qzeros, p.bits, v1=p.v1, planar=p.planar)
     first = zeros.reshape(-1)[0]
     zero_const = float(first) if bool((zeros == first).all()) else -1.0
     qzeros = packing.convert_qzeros_v1_to_v2(p.qzeros, p.bits) if p.v1 else p.qzeros
     qweight, act_perm = p.qweight, None
-    if p.g_idx is not None and qmatmul_supported(p.bits, p.group_size, p.in_features,
-                                                 p.out_features):
+    if p.g_idx is not None and _rt_contract(p):
         act_perm = _act_order_perm(p)
         if act_perm is not None:
-            codes = packing.unpack_qweight(p.qweight, p.bits)
-            qweight = packing.pack_qweight(codes[act_perm.long()], p.bits)
+            codes = packing.unpack_qweight(p.qweight, p.bits, planar=p.planar)
+            qweight = packing.pack_qweight(codes[act_perm.long()], p.bits, planar=p.planar)
     return dataclasses.replace(
         p, qweight=qweight, qzeros=qzeros, scales=p.scales.to(torch.float16), v1=False,
         zero_const=zero_const, act_perm=act_perm,
@@ -121,18 +137,20 @@ def post_init_params(tree):
     return tree
 
 
-def kernel_route(p: QuantLinear) -> str | None:
-    """The module's route: ``"K1"`` or ``"K3"``; ``"K6"`` (the reference
-    above ``PALLAS_MAX_M`` rows); ``"reference"`` for a ``g_idx`` that
-    post-init did not bake into the rows or a contiguous 2/4/8-bit module
-    outside K6's contract; None for a module whose kernel a later slice
-    ports. JAX ``select_kernel`` (``registry.py:91-117``)."""
+def kernel_route(p: QuantLinear) -> str:
+    """The module's route: ``"K1"`` or ``"K3"``, ``"K4"`` or ``"K5"`` (one
+    zero point, or one per group); ``"K6"`` (the reference above
+    ``PALLAS_MAX_M`` rows); ``"reference"`` for a ``g_idx`` that post-init
+    did not bake into the rows and for a module outside every kernel's
+    contract. JAX ``select_kernel`` (``registry.py:91-117``)."""
     if p.g_idx is not None and p.act_perm is None:
         return "reference"
-    if qmatmul_supported(p.bits, p.group_size, p.in_features, p.out_features):
+    if _rt_contract(p):
+        if p.bits in PLANE_BITS:
+            return "K4" if p.zero_const >= 0 else "K5"
         return "K1" if p.zero_const >= 0 else "K3"
-    if p.bits not in KERNEL_BITS:
-        return None
+    if p.planar or p.bits in PLANE_BITS:
+        return "reference"
     return ("K6" if qmm_supported(p.bits, p.group_size, p.in_features, p.out_features)
             else "reference")
 
@@ -150,26 +168,14 @@ def mlp_fusable(gu: QuantLinear, down: QuantLinear) -> bool:
     return all(kernel_route(m) == "K1" and m.act_perm is None for m in (gu, down))
 
 
-def _later_kernel(p: QuantLinear) -> str:
-    """The TPU kernel that would run this 3/5/6/7-bit module, ported in a
-    later slice."""
-    return ("K4 _qmm_rtp_sym_kernel (ops/pallas_qmatmul.py:385)" if p.zero_const >= 0
-            else "K5 _qmm_rtp_kernel (ops/pallas_qmatmul.py:421)")
-
-
 def qlinear_forward(p: QuantLinear, x: torch.Tensor) -> torch.Tensor:
     route = kernel_route(p)
     if route == "K6" and x.numel() // p.in_features > PALLAS_MAX_M:
         route = "reference"
-    if route == "reference" or (route is None and x.device.type == "cpu"):
+    if route == "reference":
         if x.device.type == "cuda":
             _build.LAUNCHES["reference"] += 1
         return qlinear_forward_torch(p, x)
-    if route is None:
-        raise NotImplementedError(
-            f"no CUDA kernel yet for bits={p.bits} group_size={p.group_size} "
-            f"zero_const={p.zero_const}: needs the port of {_later_kernel(p)}"
-        )
     lead = x.shape[:-1]
     x2 = x.reshape(-1, p.in_features)
     # act-order: the rows are stored in group order; one gather of x's columns
@@ -181,6 +187,11 @@ def qlinear_forward(p: QuantLinear, x: torch.Tensor) -> torch.Tensor:
         y = k1(x2, p.qweight, p.scales, zero_const=p.zero_const, **kw)
     elif route == "K3":
         y = qmatmul_asym(x2, p.qweight, p.scales, p.qzeros, **kw)
+    elif route == "K4":
+        y = qmatmul_planes(x2, p.qweight, p.scales, zero_const=p.zero_const, planar=p.planar,
+                           **kw)
+    elif route == "K5":
+        y = qmatmul_planes_asym(x2, p.qweight, p.scales, p.qzeros, planar=p.planar, **kw)
     else:
         y = qmm(x2, p.qweight, p.scales, p.qzeros, zero_const=p.zero_const, **kw)
     y = y.reshape(*lead, p.out_features)

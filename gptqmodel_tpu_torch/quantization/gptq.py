@@ -131,7 +131,7 @@ def gptq_solve_core(W, Hinv_u, SP=None, ZP=None, *, bits: int, group_size: int,
             raise NotImplementedError(
                 f"K8 takes static tables or groups of at most {B} columns, at most 8 per "
                 f"block; group_size={g} waits for a later slice of the port (ROADMAP queue 1, "
-                f"item 11), or runs through K9 with GPTQ_TPU_SOLVER=pallas")
+                f'"GPTQ leftovers"), or runs through K9 with GPTQ_TPU_SOLVER=pallas')
         Qf, Dq, L, s_out, z_out = gptq_whole_solve(W, Hinv_u, SP, ZP, **kw)
     else:
         Qf, Dq, L, s_out, z_out = solve_blocks(W, Hinv_u, SP, ZP, inner=gptq_block_inner, **kw)

@@ -5,7 +5,7 @@ computed over the last axis, codes ``q`` lie in ``[0, maxq]`` with
 ``maxq = 2**bits - 1``, and dequantization is ``scale * (q - zero)``.
 Symmetric zero is ``(maxq + 1) / 2``, asymmetric ``round(-xmin / scale)``;
 ``torch.round`` rounds half to even, as ``jnp.round`` does. The MSE
-grid-shrink search is a later slice's (ROADMAP queue 1, item 14).
+grid-shrink search is a later slice's (ROADMAP queue 1, "GPTQ leftovers").
 """
 
 from __future__ import annotations

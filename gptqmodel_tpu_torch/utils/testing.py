@@ -3,13 +3,14 @@
 ``write_random_gptq_checkpoint`` writes a llama checkpoint as a GPTQ
 exporter leaves it: ``config.json`` (with ``quantization_config``),
 ``quantize_config.json`` and sharded safetensors with an index. The packed
-modules hold uniform random codes, one symmetric zero point in the v1 form
-(or with ``sym=False`` a random zero point per group and column) and fp16
-group scales; with ``desc_act=True`` each module's ``g_idx`` is an act-order
-grouping, one random permutation per layer input, shared by q/k/v and by
-gate/up as a GPTQ export shares it. Embeddings, norms and the dense
-``lm_head`` are bf16; numpy draws them, or torch on the device the caller
-names.
+modules hold uniform random codes (random words are valid codes in every
+layout: 2/3/4/8-bit v1, planar gptq_p at any width), one symmetric zero
+point (v1 words, or v2 in gptq_p; or with ``sym=False`` a random zero point
+per group and column) and fp16 group scales; with ``desc_act=True`` each
+module's ``g_idx`` is an act-order grouping, one random permutation per
+layer input, shared by q/k/v and by gate/up as a GPTQ export shares it.
+Embeddings, norms and the dense ``lm_head`` are bf16; numpy draws them, or
+torch on the device the caller names.
 ``write_random_fp_checkpoint`` writes the dense checkpoint that quantization
 starts from: every linear weight N(0, 0.02) (HF's ``initializer_range``),
 norms 1, drawn by torch on the device the caller names.
@@ -18,8 +19,9 @@ same way: packed attention and experts, the dense bf16 router ``mlp.gate``,
 and ``q_norm``/``k_norm``, drawn by torch on the device the caller names. All
 put one shard per decoder layer and hold one layer in host memory at a time.
 Nothing is downloaded. The tests write tiny ones; ``chip_smoke.py`` writes
-them at Llama-3-8B's published widths (about 5.7 GB packed, 16 GB dense in
-bf16) and at Qwen3-30B-A3B's (about 17 GB packed).
+them at Llama-3-8B's published widths (about 5.7 GB packed at 4 bits, 4.8
+GB at 3 bits, 16 GB dense in bf16) and at Qwen3-30B-A3B's (about 17 GB
+packed).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import numpy as np
 import torch
 
 from gptqmodel_tpu_torch.models.safetensors_io import save_file
+from gptqmodel_tpu_torch.ops.pack import PLANAR_ONLY_BITS, pack_qzeros
 from gptqmodel_tpu_torch.ops.qlinear import QuantLinear
 from gptqmodel_tpu_torch.quantization.config import QUANT_CONFIG_FILENAME
 
@@ -88,21 +91,23 @@ WEIGHT_STD = 0.02
 
 
 def gptq_config(bits: int = 4, group_size: int = 128, sym: bool = True,
-                desc_act: bool = False) -> dict:
-    """``quantize_config.json`` of a GPTQ v1 export, dense lm_head."""
+                desc_act: bool = False, format: str = "gptq") -> dict:
+    """``quantize_config.json`` of a GPTQ export, dense lm_head: v1
+    (``format="gptq"``) or planar (``"gptq_p"``, the only one at 5, 6 and 7
+    bits, as ``QuantizeConfig`` has it)."""
+    if bits in PLANAR_ONLY_BITS:
+        format = "gptq_p"
     return {"bits": bits, "group_size": group_size, "desc_act": desc_act, "sym": sym,
-            "lm_head": False, "quant_method": "gptq", "checkpoint_format": "gptq"}
+            "lm_head": False, "quant_method": "gptq", "checkpoint_format": format}
 
 
-def _module_layout(in_f: int, out_f: int, bits: int, group_size: int):
-    """What every random module shares: codes per word, the v1 zero word as
-    an int32 (v1 stores zero - 1), the number of groups and the scale unit. A
-    uniform spread in [0.5, 1.5) times the unit gives dequantized weights with
-    a standard deviation near ``WEIGHT_STD``."""
-    pf = 32 // bits
-    word = sum((2 ** (bits - 1) - 1) << (bits * j) for j in range(pf))
-    code_std = math.sqrt((4**bits - 1) / 12)  # uniform codes, bits in (2, 4, 8)
-    return pf, word - 2**32 if word >= 2**31 else word, in_f // group_size, WEIGHT_STD / code_std
+def _module_layout(in_f: int, bits: int, group_size: int):
+    """What every random module shares: the rows of its packed words, the
+    number of groups and the scale unit. A uniform spread in [0.5, 1.5) times
+    the unit gives dequantized weights with a standard deviation near
+    ``WEIGHT_STD``."""
+    code_std = math.sqrt((4**bits - 1) / 12)  # uniform codes
+    return in_f * bits // 32, in_f // group_size, WEIGHT_STD / code_std
 
 
 def act_order_g_idx(perm: np.ndarray, group_size: int) -> np.ndarray:
@@ -115,34 +120,40 @@ def act_order_g_idx(perm: np.ndarray, group_size: int) -> np.ndarray:
 
 def random_gptq_module(rng: np.random.Generator, in_f: int, out_f: int, bits: int = 4,
                        group_size: int = 128, sym: bool = True,
-                       perm: np.ndarray | None = None) -> dict[str, np.ndarray]:
-    """qweight, qzeros (v1), scales and g_idx of one module whose dequantized
-    weights have a standard deviation near ``WEIGHT_STD``. ``sym=False``
-    draws each group's zero points from the middle half of the codes after
-    the rest; ``perm`` (a permutation of the inputs) gives an act-order
-    ``g_idx``."""
-    pf, _, groups, unit = _module_layout(in_f, out_f, bits, group_size)
+                       perm: np.ndarray | None = None,
+                       planar: bool = False) -> dict[str, np.ndarray]:
+    """qweight, qzeros (v1, or v2 when ``planar``), scales and g_idx of one
+    module whose dequantized weights have a standard deviation near
+    ``WEIGHT_STD``. ``sym=False`` draws each group's zero points from the
+    middle half of the codes after the rest; ``perm`` (a permutation of the
+    inputs) gives an act-order ``g_idx``."""
+    rows, groups, unit = _module_layout(in_f, bits, group_size)
     scales = rng.uniform(0.5, 1.5, (groups, out_f)) * unit
-    qweight = rng.integers(0, 2**32, (in_f // pf, out_f), dtype=np.uint32).view(np.int32)
-    qzeros, g_idx = _zeros_and_g_idx(rng, in_f, out_f, bits, group_size, sym, perm)
+    qweight = rng.integers(0, 2**32, (rows, out_f), dtype=np.uint32).view(np.int32)
+    qzeros, g_idx = _zeros_and_g_idx(rng, in_f, out_f, bits, group_size, sym, perm, planar)
     return {"qweight": qweight, "qzeros": qzeros, "scales": scales.astype(np.float16),
             "g_idx": g_idx}
 
 
 def _zeros_and_g_idx(rng: np.random.Generator | None, in_f: int, out_f: int, bits: int,
-                     group_size: int, sym: bool, perm: np.ndarray | None):
-    """The v1 ``qzeros`` words and the ``g_idx`` of a random module: one
-    symmetric zero word, or with ``sym=False`` zero points drawn by ``rng``
-    from the middle half of the codes; a contiguous ``g_idx``, or the
-    act-order one of ``perm``."""
-    pf, word, groups, _ = _module_layout(in_f, out_f, bits, group_size)
+                     group_size: int, sym: bool, perm: np.ndarray | None,
+                     planar: bool = False):
+    """The ``qzeros`` words (v1, or v2 when ``planar``) and the ``g_idx`` of
+    a random module: one symmetric zero point, or with ``sym=False`` zero
+    points drawn by ``rng`` from the middle half of the codes; a contiguous
+    ``g_idx``, or the act-order one of ``perm``. Only whole words (3-bit and
+    planar: whole 32-column units) of zeros are packed: a symmetric module
+    whose columns end mid-word has no zero word for the last ones, which no
+    kernel of one zero point reads."""
+    groups = in_f // group_size
     if sym:
-        qzeros = np.full((groups, out_f // pf), word, np.int32)
+        z = np.full((groups, out_f), 2 ** (bits - 1), np.int64)
     else:
         lo = 2 ** (bits - 2)
-        z1 = (rng.integers(lo, 3 * lo, (groups, out_f)) - 1).astype(np.uint32)  # v1: z - 1
-        z1 = z1.reshape(groups, out_f // pf, pf) << (bits * np.arange(pf, dtype=np.uint32))
-        qzeros = np.bitwise_or.reduce(z1, axis=2).view(np.int32)
+        z = rng.integers(lo, 3 * lo, (groups, out_f))
+    unit = 32 if planar or bits == 3 else 32 // bits
+    z = z[:, :out_f - out_f % unit]
+    qzeros = pack_qzeros(torch.from_numpy(z), bits, v1=not planar, planar=planar).numpy()
     g_idx = (np.arange(in_f) // group_size if perm is None
              else act_order_g_idx(perm, group_size)).astype(np.int32)
     return qzeros, g_idx
@@ -150,14 +161,17 @@ def _zeros_and_g_idx(rng: np.random.Generator | None, in_f: int, out_f: int, bit
 
 def random_quant_linear(rng: np.random.Generator, in_f: int, out_f: int, bits: int = 4,
                         group_size: int = 128, device="cuda", sym: bool = True,
-                        perm: np.ndarray | None = None) -> QuantLinear:
-    """``random_gptq_module`` as a ``QuantLinear`` on ``device``, v1 zeros as
-    on disk (``registry.post_init_module`` prepares it)."""
-    a = random_gptq_module(rng, in_f, out_f, bits, group_size, sym, perm)
+                        perm: np.ndarray | None = None, planar: bool = False) -> QuantLinear:
+    """``random_gptq_module`` as a ``QuantLinear`` on ``device``, zeros as
+    on disk: v1, or v2 when ``planar`` (``registry.post_init_module``
+    prepares it). 5, 6 and 7 bits are planar whatever ``planar`` says."""
+    planar = planar or bits in PLANAR_ONLY_BITS
+    a = random_gptq_module(rng, in_f, out_f, bits, group_size, sym, perm, planar)
     t = {k: torch.from_numpy(a[k]).to(device) for k in ("qweight", "qzeros", "scales")}
     g_idx = None if perm is None else torch.from_numpy(a["g_idx"]).to(device)
     return QuantLinear(**t, g_idx=g_idx, bias=None, bits=bits, group_size=group_size,
-                       in_features=in_f, out_features=out_f, sym=sym, v1=True)
+                       in_features=in_f, out_features=out_f, sym=sym, v1=not planar,
+                       planar=planar)
 
 
 def _normal_bf16(rng: np.random.Generator, shape) -> torch.Tensor:
@@ -180,15 +194,18 @@ def _projections(c: dict) -> dict[str, tuple[int, int]]:
 def write_random_gptq_checkpoint(path: str | Path, hf_config: dict, seed: int = 0,
                                  bits: int = 4, group_size: int = 128, sym: bool = True,
                                  desc_act: bool = False,
-                                 device: str | torch.device | None = None) -> int:
+                                 device: str | torch.device | None = None,
+                                 format: str = "gptq") -> int:
     """Write the checkpoint into ``path``: one shard for the embedding and the
     final norm, one per decoder layer, one for ``lm_head``. Each tensor draws
     from its own stream of ``seed``, with numpy, or with torch on ``device``
     when one is named (a card draws Llama-3-8B's 5.7 GB in seconds); the
     act-order permutations from numpy streams of their own, so the defaults
-    write the same bytes as before those options existed. Returns the bytes
-    of the shards."""
-    qcfg = gptq_config(bits, group_size, sym, desc_act)
+    write the same bytes as before those options existed. ``format`` is
+    ``gptq`` (v1) or ``gptq_p`` (planar, v2 zeros; 5, 6 and 7 bits always).
+    Returns the bytes of the shards."""
+    qcfg = gptq_config(bits, group_size, sym, desc_act, format)
+    planar = qcfg["checkpoint_format"] == "gptq_p"
 
     projections = _projections(hf_config)
     # the input each module reads: q/k/v share one, gate/up another
@@ -202,10 +219,10 @@ def write_random_gptq_checkpoint(path: str | Path, hf_config: dict, seed: int = 
         for proj, (in_f, out_f) in projections.items():
             perm = (np.random.default_rng([seed, 5, i, inputs[proj]]).permutation(in_f)
                     if desc_act else None)
-            module = (random_gptq_module(rng, in_f, out_f, bits, group_size, sym, perm)
+            module = (random_gptq_module(rng, in_f, out_f, bits, group_size, sym, perm, planar)
                       if gen is None else
                       _torch_gptq_module(gen, in_f, out_f, bits, group_size, device, rng, sym,
-                                         perm))
+                                         perm, planar))
             for leaf, arr in module.items():
                 tensors[f"{pre}{proj}.{leaf}"] = arr
         return tensors
@@ -290,15 +307,15 @@ def _torch_gen(device, key) -> torch.Generator:
 
 def _torch_gptq_module(gen: torch.Generator, in_f: int, out_f: int, bits: int,
                        group_size: int, device, rng: np.random.Generator | None = None,
-                       sym: bool = True,
-                       perm: np.ndarray | None = None) -> dict[str, torch.Tensor]:
+                       sym: bool = True, perm: np.ndarray | None = None,
+                       planar: bool = False) -> dict[str, torch.Tensor]:
     """``random_gptq_module`` with its codes and scales drawn by ``gen`` on
     ``device`` and its zeros and ``g_idx`` by ``rng``, on the CPU."""
-    pf, _, groups, unit = _module_layout(in_f, out_f, bits, group_size)
-    qweight = torch.randint(-2**31, 2**31, (in_f // pf, out_f), generator=gen,
+    rows, groups, unit = _module_layout(in_f, bits, group_size)
+    qweight = torch.randint(-2**31, 2**31, (rows, out_f), generator=gen,
                             dtype=torch.int64, device=device).to(torch.int32)
     scales = (torch.rand((groups, out_f), generator=gen, device=device) + 0.5) * unit
-    qzeros, g_idx = _zeros_and_g_idx(rng, in_f, out_f, bits, group_size, sym, perm)
+    qzeros, g_idx = _zeros_and_g_idx(rng, in_f, out_f, bits, group_size, sym, perm, planar)
     return {"qweight": qweight.cpu(), "qzeros": torch.from_numpy(qzeros),
             "scales": scales.to(torch.float16).cpu(), "g_idx": torch.from_numpy(g_idx)}
 

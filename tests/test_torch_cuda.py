@@ -30,6 +30,10 @@ from gptqmodel_tpu_torch.ops.qmatmul import (
     qmatmul_fused,
     qmatmul_fused_plain,
     qmatmul_plain,
+    qmatmul_planes,
+    qmatmul_planes_asym,
+    qmatmul_planes_asym_plain,
+    qmatmul_planes_plain,
     qmm,
     qmm_plain,
 )
@@ -725,6 +729,136 @@ def test_moe_facade_runs_k1_and_k10(cuda_device, tmp_path, monkeypatch):
         got = transformer.forward_logits(model.spec, model.params, ids_t, torch.bfloat16)
         monkeypatch.setattr(registry, "qmatmul", qmatmul_plain)
         monkeypatch.setattr(qmoe, "qmoe_mlp_e2e", qmoe.qmoe_mlp_e2e_plain)
+        ref = transformer.forward_logits(model.spec, model.params, ids_t, torch.bfloat16)
+    assert torch.isfinite(got).all()
+    assert _rel(got, ref) <= 1e-2
+
+
+# ------------------------------------------------------------------- K4, K5
+
+# the five layouts K4 and K5 read: 3-bit stitched, 3/5/6/7-bit planar
+PLANE_LAYOUTS = [(3, False), (3, True), (5, True), (6, True), (7, True)]
+
+
+def _planes_case(rng, bits, planar, sym, K, N, g, dev, perm=None):
+    p = post_init_module(random_quant_linear(rng, K, N, bits, g, device=dev, sym=sym,
+                                             perm=perm, planar=planar))
+    assert p.planar == planar and (p.zero_const >= 0) == sym
+    return p
+
+
+def _planes_call(p, x, plain=False):
+    kw = dict(bits=p.bits, group_size=p.group_size, planar=p.planar)
+    if p.zero_const >= 0:
+        fn = qmatmul_planes_plain if plain else qmatmul_planes
+        return fn(x, p.qweight, p.scales, zero_const=p.zero_const, **kw)
+    fn = qmatmul_planes_asym_plain if plain else qmatmul_planes_asym
+    return fn(x, p.qweight, p.scales, p.qzeros, **kw)
+
+
+@pytest.mark.parametrize("bits,planar", PLANE_LAYOUTS)
+@pytest.mark.parametrize("sym", [True, False])
+@pytest.mark.parametrize("M", [1, 8, 40, 300])
+def test_qmatmul_planes_kernels_match_plain(cuda_device, bits, planar, sym, M):
+    """K4 (one zero point) and K5 (zeros per group and column) against their
+    plain versions: exact products and z*s, f32 sums in another order, one
+    rounding to bf16: 1e-3 relative, and the same bits on every run. K = 1280
+    splits 10 groups unevenly between the 4 warps; M = 1 takes one row tile,
+    8 and 40 four, 300 the 32 x 32 tiles."""
+    rng = np.random.default_rng(bits * 100 + planar * 10 + sym + M)
+    p = _planes_case(rng, bits, planar, sym, 1280, 384, 128, cuda_device)
+    x = _x(rng, M, 1280, cuda_device)
+    name = "qmatmul_planes" if sym else "qmatmul_planes_asym"
+    before = _build.LAUNCHES[name]
+    y = _planes_call(p, x)
+    ref = _planes_call(p, x, plain=True)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == before + 1
+    assert y.dtype == torch.bfloat16 and y.shape == (M, 384)
+    assert _rel(y, ref) <= 1e-3
+    assert all(torch.equal(y, _planes_call(p, x)) for _ in range(2))
+
+
+@pytest.mark.parametrize("bits,planar", PLANE_LAYOUTS)
+@pytest.mark.parametrize("sym", [True, False])
+def test_qmatmul_planes_exact_inputs_give_equal_outputs(cuda_device, bits, planar, sym):
+    """Integer activations and power-of-two scales: every product, z*s and
+    partial sum is exact, so kernel and plain version agree bit for bit; a
+    code or zero read from the wrong bits of its unit would break that. Two
+    groups of 256 rows."""
+    rng = np.random.default_rng(40 + bits + 10 * planar + sym)
+    p = _planes_case(rng, bits, planar, sym, 512, 256, 256, cuda_device)
+    p.scales = _pow2_scales(rng, p, cuda_device)
+    x = _int_x(rng, 8, 512, cuda_device)
+    assert torch.equal(_planes_call(p, x), _planes_call(p, x, plain=True))
+
+
+def test_qmatmul_planes_refuse_what_they_do_not_take(cuda_device):
+    """No plain fallback on the card: f32 rows, groups of 64, N not a
+    multiple of 32, 5-bit words said to be stitched, qzeros of the wrong
+    shape and CPU zeros raise."""
+    rng = np.random.default_rng(19)
+    p = _planes_case(rng, 3, False, False, 256, 128, 128, cuda_device)
+    x = _x(rng, 4, 256, cuda_device)
+    kw = dict(bits=3, group_size=128, planar=False)
+    with pytest.raises(TypeError):
+        qmatmul_planes(x.float(), p.qweight, p.scales, zero_const=4.0, **kw)
+    with pytest.raises(ValueError):
+        qmatmul_planes(x, p.qweight, p.scales, zero_const=4.0, bits=3, group_size=64,
+                       planar=False)
+    with pytest.raises(ValueError):
+        qmatmul_planes(x, p.qweight[:, :120].contiguous(), p.scales[:, :120].contiguous(),
+                       zero_const=4.0, **kw)
+    p5 = _planes_case(rng, 5, True, True, 256, 128, 128, cuda_device)
+    with pytest.raises(ValueError, match="planar"):
+        qmatmul_planes(x, p5.qweight, p5.scales, zero_const=16.0, bits=5, group_size=128,
+                       planar=False)
+    with pytest.raises(ValueError):
+        qmatmul_planes_asym(x, p.qweight, p.scales, p.qzeros[:, :-1].contiguous(), **kw)
+    with pytest.raises(ValueError):
+        qmatmul_planes_asym(x, p.qweight, p.scales, p.qzeros.cpu(), **kw)
+
+
+@pytest.mark.parametrize("bits,planar", [(3, False), (7, True)])
+@pytest.mark.parametrize("sym,kernel", [(True, "qmatmul_planes"),
+                                        (False, "qmatmul_planes_asym")])
+def test_act_order_plane_module_runs_its_kernel(cuda_device, bits, planar, sym, kernel):
+    """A balanced act-order 3-bit stitched or 7-bit planar module, its rows
+    permuted at post-init on the card in its own layout: K4 or K5 after the
+    x-column gather, against the dequantize-then-matmul reference on the
+    module as loaded (bf16 weights there): 1e-2 relative."""
+    rng = np.random.default_rng(23 + bits)
+    K, N = 1024, 256
+    loaded = random_quant_linear(rng, K, N, bits, device=cuda_device, sym=sym,
+                                 perm=rng.permutation(K), planar=planar)
+    p = post_init_module(loaded)
+    assert p.act_perm is not None and p.act_perm.device.type == "cuda"
+    x = _x(rng, 8, K, cuda_device)
+    _build.reset_counts()
+    y = registry.qlinear_forward(p, x)
+    assert _build.LAUNCHES == dict.fromkeys(_build.LAUNCHES, 0) | {kernel: 1}
+    assert _rel(y, qlinear_forward_torch(loaded, x)) <= 1e-2
+
+
+@pytest.mark.parametrize("bits,fmt,sym", [(3, "gptq", True), (5, "gptq_p", False)])
+def test_plane_facade_runs_k4_or_k5(cuda_device, tmp_path, monkeypatch, bits, fmt, sym):
+    """load -> optimize -> generate of a 3-bit v1 or a 5-bit gptq_p
+    checkpoint: K4 (symmetric) or K5 four times per layer in the prefill and
+    in every decode step, nothing else; the logits near the plain path's."""
+    write_random_gptq_checkpoint(tmp_path, TINY_LLAMA, seed=4, bits=bits, sym=sym, format=fmt)
+    model = GPTQModel.load(tmp_path).optimize()
+    L, B, T, new = 2, 3, 32, 5
+    ids = np.random.default_rng(2).integers(0, 1024, (B, T))
+    _build.reset_counts()
+    tokens = model.generate(ids, max_new_tokens=new)
+    assert tokens.shape == (B, new) and ((tokens >= 0) & (tokens < 1024)).all()
+    name = "qmatmul_planes" if sym else "qmatmul_planes_asym"
+    assert _build.LAUNCHES == dict.fromkeys(_build.LAUNCHES, 0) | {name: 4 * L * new}
+    ids_t = torch.as_tensor(ids, device=cuda_device)
+    with torch.inference_mode():
+        got = transformer.forward_logits(model.spec, model.params, ids_t, torch.bfloat16)
+        monkeypatch.setattr(registry, "qmatmul_planes", qmatmul_planes_plain)
+        monkeypatch.setattr(registry, "qmatmul_planes_asym", qmatmul_planes_asym_plain)
         ref = transformer.forward_logits(model.spec, model.params, ids_t, torch.bfloat16)
     assert torch.isfinite(got).all()
     assert _rel(got, ref) <= 1e-2

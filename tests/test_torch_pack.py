@@ -51,5 +51,6 @@ def test_convert_qzeros_v1_v2_bit_exact(bits):
 
 
 def test_unsupported_bits_raise():
+    """5, 6 and 7 bits have no continuous layout: only planar=True packs them."""
     with pytest.raises(NotImplementedError):
-        tpack.pack_qweight(torch.zeros((32, 8), dtype=torch.int32), 3)
+        tpack.pack_qweight(torch.zeros((32, 8), dtype=torch.int32), 5)

@@ -282,8 +282,8 @@ def test_tensor_off_the_cpu_goes_to_the_kernel(monkeypatch):
 
 
 def _meta_module(bits, g, sym, K=256, N=128):
-    """A prepared module of a width the port does not pack (3 bits), on the
-    meta device: only its fields are read before the raise."""
+    """A prepared 3-bit module on the meta device: only its fields are read
+    before the kernel is asked for."""
     G = K // g
     return QuantLinear(
         qweight=torch.empty((K * bits // 32, N), dtype=torch.int32, device="meta"),
@@ -300,11 +300,10 @@ def _meta_module(bits, g, sym, K=256, N=128):
 ])
 def test_module_outside_k1_raises_off_the_cpu(monkeypatch, sym, bits, g, act_order, kernel):
     """Off the CPU each module takes the JAX registry's route. Asymmetric
-    modules run K3, balanced act-order ones K1 or K3 after the gather, and
-    contiguous groups of 32 K6, symmetric or not: here they ask for the
-    kernel library, which is refused, and count no launch. A module whose
-    kernel a later slice ports raises NotImplementedError naming that TPU
-    kernel: K4 or K5 for 3 bits."""
+    modules run K3, balanced act-order ones K1 or K3 after the gather,
+    contiguous groups of 32 K6, symmetric or not, and 3-bit modules K4 (one
+    zero point) or K5 (zeros per group): here they ask for the kernel
+    library, which is refused, and count no launch."""
     _refuse_build(monkeypatch)
     if bits == 3:
         tm = _meta_module(bits, g, sym)
@@ -318,12 +317,7 @@ def test_module_outside_k1_raises_off_the_cpu(monkeypatch, sym, bits, g, act_ord
         assert (tm.act_perm is not None) == act_order
     x = torch.empty((4, 256), dtype=torch.bfloat16, device="meta")
     before = dict(_build.LAUNCHES)
-    if kernel in ("K1", "K3", "K6"):
-        assert kernel_route(tm) == kernel
-        with pytest.raises(RuntimeError, match="kernel library"):
-            qlinear_forward(tm, x)
-    else:
-        assert kernel_route(tm) is None
-        with pytest.raises(NotImplementedError, match=kernel):
-            qlinear_forward(tm, x)
+    assert kernel_route(tm) == kernel
+    with pytest.raises(RuntimeError, match="kernel library"):
+        qlinear_forward(tm, x)
     assert _build.LAUNCHES == before

@@ -323,7 +323,7 @@ def test_rtn_paths_match_jax(quantized, monkeypatch, kw):
     ("method", "awq"), ("gptaq", {"alpha": 0.25}), ("foem", {"beta": 0.2}), ("mse", 2.4),
     ("act_group_aware", True), ("rotation", "hadamard"), ("smooth", "rms_row"),
     ("fallback_smooth", "rms_row"), ("adapter", {"name": "eora"}), ("tp_pad", True),
-    ("lm_head", True), ("journal", "j"), ("dynamic", {"-:.*": None}), ("bits", 3),
+    ("lm_head", True), ("journal", "j"), ("dynamic", {"-:.*": None}), ("method", "rtn"),
 ])
 def test_quantize_raises_for_what_a_later_slice_brings(quantized, field, value):
     d, *_ = quantized

@@ -32,8 +32,8 @@ def test_kernel_sources_target_hopper():
     from gptqmodel_tpu_torch.ops import _build
 
     assert "arch=compute_90a,code=sm_90a" in _build.ARCH_FLAGS
-    assert {p.name for p in _build.CSRC.glob("*.cu")} == {"qmatmul.cu", "qmm.cu", "qmlp.cu",
-                                                           "gptq_solve.cu", "qmoe.cu"}
+    assert {p.name for p in _build.CSRC.glob("*.cu")} == {
+        "qmatmul.cu", "qmatmul_planes.cu", "qmm.cu", "qmlp.cu", "gptq_solve.cu", "qmoe.cu"}
     assert _build.BUILD_DIR.name == "build"
     assert "build/" in (ROOT / ".gitignore").read_text().split()
 
