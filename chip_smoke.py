@@ -7,12 +7,15 @@ Phases, each printing JSON lines on stdout:
 
 1. ``build``: nvcc compiles every kernel of ``gptqmodel_tpu_torch/csrc`` for
    sm_90a, one process per source, and the phase prints the commands and
-   what ptxas says of each kernel (registers, shared memory, spills).
+   what ptxas says of each kernel (registers, static shared memory, spills),
+   and the dynamic shared memory of K3's and K7's decode kernel by bits and
+   M.
 2. ``kernels``: each kernel against its plain PyTorch version on the card,
    at the shapes of Llama-3-8B's main paths: K1 (``qmatmul``) at the qkv, o,
    gate_up and down projections for M = 1, 8 and 1024, K3 (``qmatmul_asym``,
-   random zeros per group and column) at the same projections and sizes at
-   4 bits and at qkv, M = 8 at 2 and 8 bits, twice each for equal bits, K2
+   random zeros per group and column) at the same projections for M = 1, 8,
+   16 (its decode kernel) and 1024 at 4 bits, with K1 timed beside it on its
+   weights, and at qkv, M = 8 at 2 and 8 bits, twice each for equal bits, K2
    (``qmlp``) at D = 4096, F = 14336 for M = 1, 8 and 64, with the weights
    rotated through copies that exceed the 50 MB L2; K8 (``gptq_whole_solve``) at the four
    solve groups (qkv 6144 x 4096, o 4096 x 4096, gate_up 28672 x 4096, down
@@ -39,7 +42,7 @@ Phases, each printing JSON lines on stdout:
    ``torch._weight_int4pack_mm`` at the same group size as the yardstick
    (its bound counts the zeros only where they are read), and the reference
    route (dequantize, then ``torch.matmul``) at M = 1024, timed for the
-   record; K7 (``qmatmul_fused``) at K1's projections and sizes, with K1
+   record; K7 (``qmatmul_fused``) at K3's projections and sizes, with K1
    and ``torch._weight_int4pack_mm`` timed beside it; and K4
    (``qmatmul_planes``, one zero point) and K5 (``qmatmul_planes_asym``,
    random zeros per group and column) at 3 bits, stitched, at the same four
@@ -144,7 +147,10 @@ Phases, each printing JSON lines on stdout:
    each route reached (the slot paths take the dense fallback past 1024
    routed rows).
 
-Then the card's name and power limit, the ``{"kernels": [...]}`` line and,
+Then ``{"phase": "profiler"}``: how many torch.profiler sessions lost
+kernel records and were run again, and how many were read from the records
+they kept (``device_ms``). Then the card's name and power limit, the
+``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Each record of the kernels line
 names its units: ``launches`` counts a whole run of the main path
 (``launches_per``: K1 and K2 the generate run, K3 the asym-act-slice
@@ -189,7 +195,9 @@ FP32_FLOPS = 67e12  # non-tensor float32 peak, H100 SXM
 L2_BYTES = 50e6
 B, T, NEW = 8, 128, 64
 K1_MS = (1, 8, 1024)
-# K3 at every projection at K1_MS, 4-bit; 2- and 8-bit at qkv, M = 8
+# K3 and K7 at every projection at K3_MS, 4-bit (M <= 16 on their decode
+# kernel); K3 also 2- and 8-bit at qkv, M = 8
+K3_MS = K7_MS = (1, 8, 16, 1024)
 K3_EXTRA_BITS = {"qkv": (2, 8)}
 K2_MS = (1, 8, 64)
 # K1 and its plain version sum the same exact products in f32 and round once
@@ -199,7 +207,7 @@ K1_TOL, K2_TOL = 1e-3, 2e-3
 K3_TOL = K1_TOL
 # K6 at every projection for M = 1, 8 and 256 (the most rows its route
 # gives it), 4-bit at groups of 32 and 64, symmetric and not; 2- and 8-bit
-# at qkv, M = 8, group 32. K7 at K1's projections and sizes.
+# at qkv, M = 8, group 32.
 K6_MS = (1, 8, 256)
 K6_GROUPS = ((32, True), (32, False), (64, True), (64, False))
 K6_EXTRA_BITS = {"qkv": (2, 8)}
@@ -1240,7 +1248,8 @@ def serve_timing(spec, params, ids, kv_quant, prefill_counts: dict,
                 token, pos, slot = out.argmax(-1), pos + 1, slot + 1
 
         step_dev_ms, by_kernel = device_ms(
-            profiled_steps, n_prof, (ProfilerActivity.CPU, ProfilerActivity.CUDA))
+            profiled_steps, n_prof, (ProfilerActivity.CPU, ProfilerActivity.CUDA),
+            uniform=False)
         # one more step with PyTorch's synchronization check raising: no value
         # of the step (the MoE routing plan included) waits on the host
         torch.cuda.set_sync_debug_mode("error")
@@ -1261,27 +1270,52 @@ def serve_timing(spec, params, ids, kv_quant, prefill_counts: dict,
     }
 
 
-def device_ms(run, per: int, activities=None) -> tuple[float, list]:
+# Profiler sessions that lost kernel records: how many, and how many of those
+# were read from the records they kept (see ``device_ms``)
+PROFILER_SHORT = {"sessions": 0, "estimated": 0}
+
+
+def device_ms(run, per: int, activities=None, uniform: bool = True) -> tuple[float, list]:
     """Kernel time on the device per ``per`` calls made by ``run()``
     under torch.profiler (CUDA activity unless ``activities`` says more), in
-    all and by kernel name. Now and then CUPTI hands a session no kernel
-    record (once in sixteen runs of this script on an H100): such a session
-    is run again, up to three times in all, and never replaced by another
-    clock."""
+    all and by kernel name. CUPTI now and then loses records: none in a
+    session (once in sixteen runs of this script on an H100), one K8 record
+    in most sessions on some machines, whatever the pause around the
+    launches, or most of a 2 ms loop's (K3 read 0.0032 ms at o, M = 8, under
+    its byte bound). A session with fewer records than calls is run again,
+    three sessions at most. With ``uniform`` every call launches the same
+    kernels, so each kernel's count must also be a multiple of ``per``; a
+    machine that loses records loses them in most sessions, so the second
+    short session that holds records (or the third session) is read as each
+    kernel's mean time over the records kept times its launches per call,
+    ``ceil(count / per)``, which is the sum over ``per`` when none was lost.
+    A decode step is not uniform (a few of its kernels launch on some steps
+    only), so its sessions are held to the count of calls alone and read as
+    the sum over ``per``. Never replaced by another clock."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    held_some = False  # an earlier session of this call held records, too few
+    for session in range(3):
         with profile(activities=list(activities or (ProfilerActivity.CUDA,))) as prof:
             run()
             torch.cuda.synchronize()
-        rows = [(e.key, e.self_device_time_total / 1e3 / per) for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-        if rows:
-            rows.sort(key=lambda kv: -kv[1])
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        n = sum(e.count for e in kernels)
+        short = n < per or (uniform and any(e.count % per for e in kernels))
+        if kernels and (not short or (uniform and (held_some or session == 2))):
+            PROFILER_SHORT["estimated"] += short
+            launches = (lambda c: -(-c // per)) if uniform else (lambda c: c / per)
+            rows = sorted(((e.key, e.self_device_time_total / 1e3 / e.count
+                            * launches(e.count)) for e in kernels), key=lambda kv: -kv[1])
             return sum(ms for _, ms in rows), rows
-    raise CheckFailed("torch.profiler recorded no kernel on the device in three sessions")
+        PROFILER_SHORT["sessions"] += 1
+        held_some = held_some or bool(kernels)
+        print(f"chip_smoke: profiler session held {n} kernel records for {per} calls "
+              f"({', '.join(str(e.count) for e in kernels)} by kernel)", file=sys.stderr)
+    raise CheckFailed("torch.profiler recorded fewer kernels than calls in three sessions")
 
 
 def timed(fn, n_copies: int, budget_ms: float = 150.0) -> dict:
@@ -1342,16 +1376,18 @@ def copies_for(n_bytes: int) -> int:
 
 def k3_kernel_cases(dev, rng, shapes: dict) -> list:
     """K3 against its plain version at Llama-3-8B's projections (``shapes``:
-    proj -> K, N), 4-bit at K1_MS and 2- and 8-bit at the sizes
+    proj -> K, N), 4-bit at K3_MS and 2- and 8-bit at the sizes
     ``K3_EXTRA_BITS`` names, group 128, random per-group zeros; two runs each
     for equal bits, the weights rotated through copies past the L2, and
     ``torch._weight_int4pack_mm`` with the zeros folded into its
-    scales-and-zeros as the yardstick at 4 bits."""
+    scales-and-zeros as the yardstick at 4 bits. K1 is timed beside it on
+    the same qweight and scales (``zero_const = 8``; its result is not
+    K3's), the control of the same tile at prefill."""
     import torch
 
     from gptqmodel_tpu_torch.ops import _build
     from gptqmodel_tpu_torch.ops.pack import unpack_qzeros
-    from gptqmodel_tpu_torch.ops.qmatmul import qmatmul_asym, qmatmul_asym_plain
+    from gptqmodel_tpu_torch.ops.qmatmul import qmatmul, qmatmul_asym, qmatmul_asym_plain
     from gptqmodel_tpu_torch.ops.registry import post_init_module
     from gptqmodel_tpu_torch.utils.testing import random_quant_linear
 
@@ -1368,7 +1404,7 @@ def k3_kernel_cases(dev, rng, shapes: dict) -> list:
                              for _ in range(copies_for(wbytes) - 1)]
             lib_w = ([int4pack(m.qweight, m.scales, unpack_qzeros(m.qzeros, 4).float())
                       for m in mods] if has_int4pack and bits == 4 else None)
-            for M in (K1_MS if bits == 4 else (B,)):
+            for M in (K3_MS if bits == 4 else (B,)):
                 x = torch.from_numpy(rng.standard_normal((M, K), dtype=np.float32)).to(
                     dev).to(torch.bfloat16)
                 kw = dict(bits=bits, group_size=128)
@@ -1381,6 +1417,8 @@ def k3_kernel_cases(dev, rng, shapes: dict) -> list:
                 identical = torch.equal(y, y2)
                 rel, mx = errors(y, ref)
                 k = timed(lambda i: qmatmul_asym(*ops(i), **kw), len(mods))
+                k1 = timed(lambda i: qmatmul(x, mods[i].qweight, mods[i].scales, bits=bits,
+                                             group_size=128, zero_const=8.0), len(mods))
                 pl_ = timed(lambda i: qmatmul_asym_plain(*ops(i), **kw), len(mods),
                             budget_ms=100.0)
                 lib, lib_rel = None, None
@@ -1392,8 +1430,8 @@ def k3_kernel_cases(dev, rng, shapes: dict) -> list:
                 b_ms, b_by = bound(x.nbytes + wbytes + y.nbytes, 2.0 * M * N * K)
                 case = {"kernel": "qmatmul_asym", "proj": proj, "bits": bits, "M": M, "K": K,
                         "N": N, "rel_err": rel, "max_abs_err": mx, "identical_runs": identical,
-                        "ms": k["ms"], "wall_ms": k["wall_ms"], "plain_ms": pl_["ms"],
-                        "bound_ms": b_ms, "bound_by": b_by,
+                        "ms": k["ms"], "wall_ms": k["wall_ms"], "k1_ms": k1["ms"],
+                        "plain_ms": pl_["ms"], "bound_ms": b_ms, "bound_by": b_by,
                         "library_ms": lib["ms"] if lib else None,
                         "library": (library if bits == 4 else
                                     "null: torch._weight_int4pack_mm takes 4-bit weights"),
@@ -1499,7 +1537,7 @@ def k6_kernel_cases(dev, rng, shapes: dict) -> list:
 
 
 def k7_kernel_cases(dev, rng, shapes: dict) -> list:
-    """K7 against its plain version at K1's projections and sizes (4-bit,
+    """K7 against its plain version at K3's projections and sizes (4-bit,
     group 128, one zero point), twice each for equal bits, the weights
     rotated through copies past the L2; K1 and ``torch._weight_int4pack_mm``
     timed in the same call on the same weights."""
@@ -1522,7 +1560,7 @@ def k7_kernel_cases(dev, rng, shapes: dict) -> list:
                  if has_int4pack else None)
         kw = dict(bits=4, group_size=128, zero_const=base.zero_const)
         ops = lambda i: (x, mods[i].qweight, mods[i].scales)
-        for M in K1_MS:
+        for M in K7_MS:
             x = torch.from_numpy(rng.standard_normal((M, K), dtype=np.float32)).to(dev).to(
                 torch.bfloat16)
             before = _build.LAUNCHES["qmatmul_fused"]
@@ -1785,7 +1823,9 @@ def main() -> int:
     from gptqmodel_tpu_torch.device import gpu_info
     from gptqmodel_tpu_torch.models.optimize import _concat_quant
     from gptqmodel_tpu_torch.ops import _build
-    from gptqmodel_tpu_torch.ops.qmatmul import qmatmul, qmatmul_plain
+    from gptqmodel_tpu_torch.ops.qmatmul import (
+        KERNEL_BITS, qmatmul, qmatmul_plain,
+    )
     from gptqmodel_tpu_torch.ops.qmlp import qmlp, qmlp_plain
     from gptqmodel_tpu_torch.ops.gptq_solve import (
         gptq_block_inner, gptq_block_inner_plain, gptq_whole_solve, gptq_whole_solve_plain,
@@ -1806,13 +1846,16 @@ def main() -> int:
 
     # ---------------------------------------------------------------- build
     _build.build()  # always, so that the phase reports this run's nvcc
-    _build.lib()
+    smem_of = _build.lib().gqt_decode_smem_bytes  # the header's own sizes
     info = _build.BUILD_INFO
     kernels_ptxas = ptxas_summary(info["ptxas"])
     require(kernels_ptxas, "ptxas reported no kernel")
     build_rec = {"phase": "build", "seconds": info["seconds"], "compile": info["compile"],
-                 "link": info["link"], "ptxas": kernels_ptxas, "torch": torch.__version__,
-                 "cuda": torch.version.cuda}
+                 "link": info["link"], "ptxas": kernels_ptxas,
+                 "decode_dynamic_smem": {f"{bits}-bit": {M: smem_of(bits, M)
+                                                         for M in (1, 8, 16)}
+                                         for bits in KERNEL_BITS},
+                 "torch": torch.__version__, "cuda": torch.version.cuda}
     emit(build_rec)
     record["build"] = build_rec
 
@@ -2116,14 +2159,16 @@ def main() -> int:
          "max_abs_err": max(c["max_abs_err"] for c in cases if c["kernel"] == "qmatmul"),
          **per_step("qmatmul", [("qkv", L), ("o", L)])},
         {"name": "qmatmul_asym (K3)", "route": "cuda",
-         "source": "gptqmodel_tpu_torch/csrc/qmatmul.cu",
+         "source": ("gptqmodel_tpu_torch/csrc/qmm_decode.cuh (M <= 16), "
+                    "gptqmodel_tpu_torch/csrc/qmatmul.cu (M > 16)"),
          "replaces": "gptqmodel_tpu/ops/pallas_qmatmul.py:117",
          "launches": act["asym_act_slice"]["generate_counts"]["qmatmul_asym"],
          "launches_per": "asym-act-slice generate run", "ms_per": "decode step",
          "max_abs_err": max(c["max_abs_err"] for c in cases if c["kernel"] == "qmatmul_asym"),
          **per_step("qmatmul_asym", [("qkv", L), ("o", L), ("gate_up", L), ("down", L)])},
         {"name": "qmatmul_fused (K7)", "route": "cuda",
-         "source": "gptqmodel_tpu_torch/csrc/qmatmul.cu",
+         "source": ("gptqmodel_tpu_torch/csrc/qmm_decode.cuh (M <= 16), "
+                    "gptqmodel_tpu_torch/csrc/qmatmul.cu (M > 16)"),
          "replaces": "gptqmodel_tpu/ops/pallas_qmatmul.py:263",
          "launches": fused["generate_counts"]["qmatmul_fused"],
          "launches_per": f"fused generate run (GPTQ_TPU_RT_FUSED=1, {FUSED_NEW} tokens)",
@@ -2220,6 +2265,9 @@ def main() -> int:
          "ms_per": per_route_layer + ", gate|up and down", **moe_entry("qmoe_matmul", B, 1)},
     ]
     record["summary"] = summary
+    record["profiler_short"] = dict(PROFILER_SHORT)
+    emit({"phase": "profiler", "short_sessions": PROFILER_SHORT["sessions"],
+          "read_from_kept_records": PROFILER_SHORT["estimated"]})
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1) + "\n")
     print(card, flush=True)
     emit({"kernels": summary})

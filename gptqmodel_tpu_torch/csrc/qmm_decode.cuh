@@ -1,0 +1,472 @@
+// The decode kernel of K3 and K7 (M <= 16 rows): y[M, N] = x[M, K] @ dequant(qweight).
+//
+// At decode the packed weights are the whole cost: each is read once and
+// used for at most 16 rows, so the card's 3.35 TB/s bounds the kernel and
+// every SM has to keep some 25 KB of loads in flight (about 25 bytes/ns
+// each over a microsecond of latency), while its warps turn each word into
+// tensor-core operands fast enough to keep up. The design answers both:
+//
+// - A block owns kDecodeCols = 64 columns, 256 contiguous bytes of every
+//   4-bit word row, and a share of K in whole groups. The blocks of one
+//   column tile form a thread-block cluster along K (at most 8); the launch
+//   plan (ops/qmatmul.py, decode_plan) picks the cluster size so that each
+//   Llama-3-8B projection launches two to four blocks per SM, about what
+//   is resident at once. Rank r takes groups [r*G/S, (r+1)*G/S).
+// - The block's weights, the group's fp16 scale row, K3's qzeros words and
+//   x's slice arrive through a ring of DecodeShape::STAGES stages in shared
+//   memory, one 128-row chunk (inside one group) per stage. Two producer
+//   warps fill the ring with 16-byte cp.async copies (4-byte for the zeros,
+//   whose rows need not be 16-byte aligned) whose completion arrives on the
+//   stage's full mbarrier (cp.async.mbarrier.arrive.noinc), so the four
+//   consumer warps spend no instruction on loads from device memory and
+//   never wait on one another: a stage is refilled when its empty barrier
+//   says all four are done. One producer warp could not issue fast enough,
+//   and one 256-byte cp.async.bulk per row was slower still (PERF.md).
+//   STAGES - 1 chunks are in flight while the consumers work on one: 20 KB
+//   a block at 4 bits, two to five blocks an SM. Scales and zeros are read
+//   from the stage, never by a load from device memory on the way to the
+//   mma.
+// - The weights are the mma's A operand (16 output columns x 16 K-rows) and
+//   x is B (8 tokens), so at M <= 8 no mma row is padding; M = 9..16 takes
+//   a second n-tile that shares every A fragment. Consumer warp w owns
+//   columns 32*(w&1) .. +31 of the tile and every other 4-word-row step of
+//   each chunk (w>>1 picks which: kDecodeKParts shares of K). Lane (gid, t)
+//   reads one 16-byte word of shared memory: the words of 4 neighbouring
+//   columns at word row 4*it + t,
+//   which are A rows gid and gid+8 of two m-tiles, and whose PF codes become
+//   the pairs of code_pair (qmm_common.cuh) exactly as in K1's tile; x's B
+//   fragment is gathered from the same PF K-rows of token gid. x comes from
+//   device memory once per block, and the group sums X1 come out of the
+//   tensor cores: one mma of x's fragment against an all-ones A tile serves
+//   both m-tiles.
+// - The shared-memory rows are padded (weights by 8 words, x by
+//   DecodeShape::XPAD) so that a warp's loads fall in distinct banks.
+// - The K shares of a column half add their partials in a fixed order,
+//   then rank 0 adds its peers' float32 partials through distributed shared
+//   memory, in rank order, and rounds once to bf16: no atomics, the same
+//   bits on every run.
+//
+// The arithmetic is K1's tile's (qmm_common.cuh): K3 adds, per group g,
+// P_g * s_g - X1_g * (z_g * s_g) in float32; K7 (FOLD) sums x * bf16(c * s_g)
+// straight into the accumulator and subtracts X1_g * (zc * s_g) when the
+// group ends. A warp sees half of each group's K-rows, so it applies the
+// correction with the X1 of its own half; the halves add up to the group.
+
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "qmm_common.cuh"
+
+namespace gqt {
+
+constexpr int kDecodeMaxM = 16;
+constexpr int kDecodeCols = 64;                   // columns per block
+constexpr int kDecodeRowWords = kDecodeCols + 8;  // a word row in shared memory
+constexpr int kDecodeMaxSplit = 8;                // blocks per cluster (portable limit)
+constexpr int kDecodeMaxSmem = 232448;  // the dynamic shared memory a block may take (H100)
+// The warps of a block. scripts/decode_sweep.py builds other counts with -D
+// to time them against these.
+#ifndef GQT_DECODE_KPARTS
+#define GQT_DECODE_KPARTS 2
+#endif
+#ifndef GQT_DECODE_PRODUCERS
+#define GQT_DECODE_PRODUCERS 2
+#endif
+// consumer warps per 32-column half, each a share of K
+constexpr int kDecodeKParts = GQT_DECODE_KPARTS;
+constexpr int kDecodeConsumers = 2 * kDecodeKParts;
+constexpr int kDecodeProducers = GQT_DECODE_PRODUCERS;  // warps that fill the ring
+constexpr int kDecodeThreads = 32 * (kDecodeConsumers + kDecodeProducers);
+constexpr int kDecodeBarBytes = 128;  // the ring's mbarriers, ahead of the ring
+
+// Sizes of one stage of the ring (one 128-row chunk) at BITS bits.
+template <int BITS>
+struct DecodeShape {
+  static constexpr int PF = 32 / BITS;
+  static constexpr int WR = kChunk / PF;  // word rows per chunk
+  static constexpr int ITS = WR / 4;      // 4-word-row steps per chunk
+  static constexpr int STAGES = BITS == 2 ? 8 : BITS == 4 ? 6 : 4;
+  // x row in words: 64 (128 bf16) + a pad that spreads a warp's loads over the banks
+  static constexpr int XPAD = BITS == 2 ? 4 : BITS == 4 ? 16 : 8;
+  static constexpr int XROW = kChunk / 2 + XPAD;
+  static constexpr int W_BYTES = WR * kDecodeRowWords * 4;
+  static constexpr int S_BYTES = kDecodeCols * 2;  // the group's fp16 scales
+  static constexpr int Z_BYTES = 64;               // the group's qzeros words (K3)
+  __host__ __device__ static constexpr int stage_bytes(int M) {
+    return W_BYTES + S_BYTES + Z_BYTES + M * XROW * 4;
+  }
+  __host__ __device__ static constexpr int smem_bytes(int M) {
+    return kDecodeBarBytes + STAGES * stage_bytes(M);
+  }
+  // A block's ring at the most rows fits what a block may take; and at the
+  // two blocks an SM that the launch plan gives at least, the STAGES - 1
+  // chunks of weights in flight make 24 KB or more an SM.
+  static constexpr bool fits() {
+    return smem_bytes(kDecodeMaxM) <= kDecodeMaxSmem &&
+           2 * (STAGES - 1) * WR * kDecodeCols * 4 >= 24 * 1024;
+  }
+};
+static_assert(DecodeShape<2>::fits() && DecodeShape<4>::fits() && DecodeShape<8>::fits(),
+              "the decode ring must fit a block and keep 24 KB an SM in flight");
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+// bar's pending count drops by one when this thread's cp.async copies have landed
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kDecodeConsumers) : "memory");
+}
+
+// NX words of x for a token of a stage (zeros for a token past M).
+template <int NX>
+__device__ __forceinline__ void lds_x(const uint32_t* p, bool ok, uint32_t (&v)[NX]) {
+  if (!ok) {
+#pragma unroll
+    for (int i = 0; i < NX; ++i) v[i] = 0u;
+    return;
+  }
+  if constexpr (NX % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < NX / 4; ++i) {
+      const uint4 q = reinterpret_cast<const uint4*>(p)[i];
+      v[4 * i + 0] = q.x; v[4 * i + 1] = q.y; v[4 * i + 2] = q.z; v[4 * i + 3] = q.w;
+    }
+  } else {
+    static_assert(NX == 2, "8-bit rows are 8 bytes");
+    const uint2 q = *reinterpret_cast<const uint2*>(p);
+    v[0] = q.x; v[1] = q.y;
+  }
+}
+
+// Z is GroupZeros<BITS> (K3) or UniformZero (K7, with FOLD); NT n-tiles of
+// 8 tokens (M <= 8 * NT). Grid: (column tiles) x split blocks, clusters of
+// split along x; dynamic shared memory DecodeShape<BITS>::smem_bytes(M).
+template <int BITS, int NT, class Z, bool FOLD>
+__global__ void __launch_bounds__(kDecodeThreads)
+    qmm_decode_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
+                      const uint32_t* __restrict__ qw, const __half* __restrict__ sc, int N,
+                      int g, Z zero, __nv_bfloat16* __restrict__ out) {
+  using D = DecodeShape<BITS>;
+  constexpr int PF = D::PF, ST = D::STAGES;
+  constexpr int NX = PF / 2;  // x words per token per lane per step
+  constexpr int NS = PF / 4;  // mma steps per 4-word-row step
+  constexpr bool kPerGroupZeros = !std::is_same<Z, UniformZero>::value;
+  static_assert(!(FOLD && kPerGroupZeros), "K7 takes one zero point");
+  constexpr int KP = kDecodeKParts < D::ITS ? kDecodeKParts : D::ITS;  // K shares in use
+  extern __shared__ __align__(128) unsigned char smem[];
+
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int c0 = (blockIdx.x / split) * kDecodeCols;
+  const int G = K / g;
+  const int k_begin = (rank * G / split) * g;
+  const int n_chunks = ((rank + 1) * G / split - rank * G / split) * (g / kChunk);
+  const int stage_bytes = D::stage_bytes(M);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const uint32_t bars = smem_addr(smem);  // full[s] at 8s, empty[s] at 8(ST + s)
+  unsigned char* ring = smem + kDecodeBarBytes;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(bars + 8 * s, 32 * kDecodeProducers);  // each producer lane's copies
+      mbar_init(bars + 8 * (ST + s), 2 * KP);  // the consumer warps that read it
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kDecodeConsumers) {  // the producers: each lane copies 16-byte pieces
+    const int pl = threadIdx.x - 32 * kDecodeConsumers;  // 0 .. 32 * kDecodeProducers - 1
+    constexpr int PT = 32 * kDecodeProducers;
+    int grp = k_begin / g, left = g / kChunk;  // the chunk's group; its chunks still to copy
+    for (int c = 0; c < n_chunks; ++c) {
+      const int s = c % ST;
+      if (c >= ST) mbar_wait(bars + 8 * (ST + s), ((c / ST) - 1) & 1);
+      const uint32_t st = smem_addr(ring + s * stage_bytes);
+      const int k0 = k_begin + c * kChunk;
+      static_assert(D::WR * (kDecodeCols / 4) % PT == 0, "whole rounds of pieces");
+#pragma unroll
+      for (int i0 = 0; i0 < D::WR * (kDecodeCols / 4); i0 += PT) {  // 4 columns of a word row
+        const int r = (i0 + pl) / (kDecodeCols / 4), q = (i0 + pl) % (kDecodeCols / 4);
+        if (c0 + 4 * q < N)  // N % 8 == 0: a 4-column piece is whole or absent
+          cp_async16(st + 4 * (r * kDecodeRowWords + 4 * q),
+                     qw + (size_t)(k0 / PF + r) * N + c0 + 4 * q);
+      }
+      if (pl < kDecodeCols / 8 && c0 + 8 * pl < N)
+        cp_async16(st + D::W_BYTES + 16 * pl, sc + (size_t)grp * N + c0 + 8 * pl);
+      if constexpr (kPerGroupZeros) {
+        const int wi = pl - kDecodeCols / 8;
+        if (wi >= 0 && wi < kDecodeCols / PF && c0 / PF + wi < N / PF)
+          cp_async4(st + D::W_BYTES + D::S_BYTES + 4 * wi,
+                    zero.qz + (size_t)grp * zero.words + c0 / PF + wi);
+      }
+      for (int i = pl; i < M * (kChunk / 8); i += PT) {  // 8 values of an x row
+        const int m = i / (kChunk / 8), q = i % (kChunk / 8);
+        cp_async16(st + D::W_BYTES + D::S_BYTES + D::Z_BYTES + 4 * (m * D::XROW + 4 * q),
+                   x + (size_t)m * K + k0 + 8 * q);
+      }
+      cp_async_arrive(bars + 8 * s);
+      if (--left == 0) {
+        ++grp;
+        left = g / kChunk;
+      }
+    }
+    return;
+  }
+
+  // consumers
+  const int t = lane & 3, gid = lane >> 2;
+  const int half = warp & 1, kp = warp >> 1;  // kp >= KP: no K share at this width
+  const int cw = 32 * half + 4 * gid;  // this lane's 4 columns in the tile: cw .. cw + 3
+  constexpr uint32_t kOnes = 0x3F803F80u;  // bf16 (1, 1)
+  const uint32_t ones[4] = {kOnes, kOnes, kOnes, kOnes};
+  // m-tile j: A row gid is column cw + 2j, A row gid + 8 column cw + 2j + 1
+  float acc[2][NT][4], p[2][NT][4], x1[NT][4];
+  int left = g / kChunk;  // chunks of the current group still to come
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      acc[0][nt][i] = acc[1][nt][i] = p[0][nt][i] = p[1][nt][i] = x1[nt][i] = 0.f;
+    }
+
+#pragma unroll 1
+  for (int c = 0; c < (kp < KP ? n_chunks : 0); ++c) {
+    const int s = c % ST;
+    mbar_wait(bars + 8 * s, (c / ST) & 1);
+    const unsigned char* st = ring + s * stage_bytes;
+    const uint32_t* ws = reinterpret_cast<const uint32_t*>(st);
+    const __half* ss = reinterpret_cast<const __half*>(st + D::W_BYTES);
+    const uint32_t* xs =
+        reinterpret_cast<const uint32_t*>(st + D::W_BYTES + D::S_BYTES + D::Z_BYTES);
+    float sf[4];  // the scales of this lane's 4 columns; a chunk is in one group
+    {
+      const uint2 h2 = *reinterpret_cast<const uint2*>(ss + cw);
+      const float2 lo = __half22float2(*reinterpret_cast<const __half2*>(&h2.x));
+      const float2 hi = __half22float2(*reinterpret_cast<const __half2*>(&h2.y));
+      sf[0] = lo.x; sf[1] = lo.y; sf[2] = hi.x; sf[3] = hi.y;
+    }
+#pragma unroll
+    for (int i2 = 0; i2 < D::ITS / KP; ++i2) {
+      const int wr = 4 * (KP * i2 + kp) + t;  // the lane's word row: K-rows wr*PF .. wr*PF + PF - 1
+      const uint4 q4 = *reinterpret_cast<const uint4*>(ws + wr * kDecodeRowWords + cw);
+      const uint32_t q[4] = {q4.x, q4.y, q4.z, q4.w};
+      uint32_t xv[NT][NX];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int m = 8 * nt + gid;
+        lds_x<NX>(xs + m * D::XROW + wr * NX, m < M, xv[nt]);
+      }
+#pragma unroll
+      for (int s2 = 0; s2 < NS; ++s2) {
+        uint32_t b0[NT], b1[NT];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          // K-slots 2t, 2t+1 hold fields 2s2, 2s2 + PF/2; 2t+8, 2t+9 fields 2s2+1, +PF/2
+          b0[nt] = __byte_perm(xv[nt][s2], xv[nt][s2 + NS], 0x5410);
+          b1[nt] = __byte_perm(xv[nt][s2], xv[nt][s2 + NS], 0x7632);
+          mma_bf16(x1[nt], ones, b0[nt], b1[nt]);
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          uint32_t a[4];
+          if constexpr (FOLD) {
+            a[0] = fold_pair<BITS>(q[2 * j], 2 * s2, sf[2 * j]);
+            a[1] = fold_pair<BITS>(q[2 * j + 1], 2 * s2, sf[2 * j + 1]);
+            a[2] = fold_pair<BITS>(q[2 * j], 2 * s2 + 1, sf[2 * j]);
+            a[3] = fold_pair<BITS>(q[2 * j + 1], 2 * s2 + 1, sf[2 * j + 1]);
+          } else {
+            a[0] = code_pair<BITS>(q[2 * j], 2 * s2);
+            a[1] = code_pair<BITS>(q[2 * j + 1], 2 * s2);
+            a[2] = code_pair<BITS>(q[2 * j], 2 * s2 + 1);
+            a[3] = code_pair<BITS>(q[2 * j + 1], 2 * s2 + 1);
+          }
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            if constexpr (FOLD)
+              mma_bf16(acc[j][nt], a, b0[nt], b1[nt]);
+            else
+              mma_bf16(p[j][nt], a, b0[nt], b1[nt]);
+          }
+        }
+      }
+    }
+    if (--left == 0) {  // the group ends with this chunk
+      left = g / kChunk;
+      float zs[4];  // z * s of the 4 columns, exact in f32
+      if constexpr (kPerGroupZeros) {
+        const uint32_t zw =
+            reinterpret_cast<const uint32_t*>(st + D::W_BYTES + D::S_BYTES)[cw / PF];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) zs[i] = zero.one(zw, cw + i) * sf[i];
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) zs[i] = zero.zc * sf[i];
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            // D fragment: [0], [1] column cw + 2j, tokens 8nt + 2t, +1; [2], [3] column + 1
+            const int col = 2 * j + (i >> 1);
+            if constexpr (FOLD)
+              acc[j][nt][i] -= x1[nt][i] * zs[col];
+            else
+              acc[j][nt][i] += p[j][nt][i] * sf[col] - x1[nt][i] * zs[col];
+            p[j][nt][i] = 0.f;
+          }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) x1[nt][i] = 0.f;
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bars + 8 * (ST + s));  // this warp is done with the stage
+  }
+
+  // the K shares of a column half, then the cluster's ranks, in order
+  float* red = reinterpret_cast<float*>(ring);
+  const auto slot = [&](int share, int j, int nt, int i) {
+    return ((((share * 2 + half) * 2 + j) * NT + nt) * 4 + i) * 32 + lane;
+  };
+  consumers_sync();  // every consumer is done with the ring: it takes the partials
+  if (kp >= 1 && kp < KP) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) red[slot(kp - 1, j, nt, i)] = acc[j][nt][i];
+  }
+  consumers_sync();
+  if (kp == 0) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          for (int share = 0; share < KP - 1; ++share) acc[j][nt][i] += red[slot(share, j, nt, i)];
+          if (rank != 0) red[slot(0, j, nt, i)] = acc[j][nt][i];
+        }
+  }
+  if (split > 1) {
+    cluster.sync();
+    if (rank == 0 && kp == 0) {
+      for (int r = 1; r < split; ++r) {
+        const float* peer = cluster.map_shared_rank(red, r);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[j][nt][i] += peer[slot(0, j, nt, i)];
+      }
+    }
+    cluster.sync();  // the peers' shared memory lives until rank 0 has read it
+  }
+  if (rank != 0 || kp != 0 || c0 + cw >= N) return;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // tokens 8nt + 2t + h: 4 neighbouring columns
+      const int m = 8 * nt + 2 * t + h;
+      if (m < M) {
+        __nv_bfloat162 v[2] = {__floats2bfloat162_rn(acc[0][nt][h], acc[0][nt][2 + h]),
+                               __floats2bfloat162_rn(acc[1][nt][h], acc[1][nt][2 + h])};
+        *reinterpret_cast<uint2*>(out + (size_t)m * N + c0 + cw) =
+            *reinterpret_cast<const uint2*>(v);
+      }
+    }
+}
+
+// The decode kernel's dynamic shared memory is set once per instantiation,
+// to what M = 8 * NT takes.
+template <int BITS, int NT, class Z, bool FOLD>
+cudaError_t decode_smem_attribute() {
+  static const cudaError_t e =
+      cudaFuncSetAttribute(qmm_decode_kernel<BITS, NT, Z, FOLD>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           DecodeShape<BITS>::smem_bytes(8 * NT));
+  return e;
+}
+
+// Launches the decode kernel with the plan's cluster size. Returns 0, -1 when
+// the split is outside 1 .. min(kDecodeMaxSplit, K / g), or the CUDA error.
+template <int BITS, class Z, bool FOLD>
+int launch_decode(const void* x, int M, int K, const void* qw, const void* sc, int N, int g,
+                  Z zero, int split, void* out, cudaStream_t stream) {
+  const int smem = DecodeShape<BITS>::smem_bytes(M);
+  if (M < 1 || M > kDecodeMaxM || split < 1 || split > kDecodeMaxSplit || split > K / g)
+    return -1;
+  const auto launch = [&](auto kernel, cudaError_t attr) -> int {
+    if (attr != cudaSuccess) return (int)attr;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)(((N + kDecodeCols - 1) / kDecodeCols) * split));
+    cfg.blockDim = dim3(kDecodeThreads);
+    cfg.dynamicSmemBytes = (size_t)smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr_[1];
+    attr_[0].id = cudaLaunchAttributeClusterDimension;
+    attr_[0].val.clusterDim.x = (unsigned)split;
+    attr_[0].val.clusterDim.y = 1;
+    attr_[0].val.clusterDim.z = 1;
+    cfg.attrs = attr_;
+    cfg.numAttrs = 1;
+    const cudaError_t e = cudaLaunchKernelEx(
+        &cfg, kernel, static_cast<const __nv_bfloat16*>(x), M, K,
+        static_cast<const uint32_t*>(qw), static_cast<const __half*>(sc), N, g, zero,
+        static_cast<__nv_bfloat16*>(out));
+    return (int)(e != cudaSuccess ? e : cudaGetLastError());
+  };
+  return M <= 8 ? launch(qmm_decode_kernel<BITS, 1, Z, FOLD>,
+                         decode_smem_attribute<BITS, 1, Z, FOLD>())
+                : launch(qmm_decode_kernel<BITS, 2, Z, FOLD>,
+                         decode_smem_attribute<BITS, 2, Z, FOLD>());
+}
+
+}  // namespace gqt

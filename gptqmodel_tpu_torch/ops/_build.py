@@ -33,7 +33,10 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build"
 LIB_NAME = "libgptqmodel_tpu_torch.so"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# -fno-gnu-unique: two builds loaded in one process (scripts/decode_sweep.py)
+# keep their own template statics
+NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xcompiler", "-fno-gnu-unique",
+              "-Xptxas", "-v"]
 
 LAUNCHES = {"qmatmul": 0, "qmatmul_asym": 0, "qmatmul_fused": 0, "qmm": 0,
             "qmatmul_planes": 0, "qmatmul_planes_asym": 0, "qmlp": 0,
@@ -58,17 +61,21 @@ def _nvcc() -> str:
     return exe
 
 
-def build() -> Path:
-    """Compile every ``csrc/*.cu`` in parallel, link, and return the library."""
+def build(lib_path: Path = BUILD_DIR / LIB_NAME, sources: tuple[str, ...] = (),
+          defines: dict[str, int] | None = None) -> Path:
+    """Compile every ``csrc/*.cu`` (or only ``sources``) in parallel with the
+    ``-D`` macros ``defines``, link into ``lib_path``, and return it."""
     nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
     t0 = time.time()
-    lib_path = BUILD_DIR / LIB_NAME
-    with tempfile.TemporaryDirectory(prefix="objs-", dir=BUILD_DIR) as work:
+    flags = [*ARCH_FLAGS, *NVCC_FLAGS, *(f"-D{k}={v}" for k, v in (defines or {}).items())]
+    with tempfile.TemporaryDirectory(prefix="objs-", dir=lib_path.parent) as work:
         procs = []
         for src in sorted(CSRC.glob("*.cu")):
+            if sources and src.name not in sources:
+                continue
             obj = Path(work) / (src.stem + ".o")
-            cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, f"-I{CSRC}", "-c", str(src), "-o", str(obj)]
+            cmd = [nvcc, *flags, f"-I{CSRC}", "-c", str(src), "-o", str(obj)]
             procs.append((src, obj, cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
         outs = [p.communicate()[0] for *_, p in procs]  # every nvcc ends first
@@ -111,10 +118,12 @@ def lib() -> ctypes.CDLL:
             vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             handle.gqt_qmatmul.argtypes = [vp, i, i, vp, vp, i, i, f, i, vp, vp]
             handle.gqt_qmatmul.restype = i
-            handle.gqt_qmatmul_asym.argtypes = [vp, i, i, vp, vp, vp, i, i, i, vp, vp]
+            handle.gqt_qmatmul_asym.argtypes = [vp, i, i, vp, vp, vp, i, i, i, i, vp, vp]
             handle.gqt_qmatmul_asym.restype = i
-            handle.gqt_qmatmul_fused.argtypes = [vp, i, i, vp, vp, i, i, f, i, vp, vp]
+            handle.gqt_qmatmul_fused.argtypes = [vp, i, i, vp, vp, i, i, f, i, i, vp, vp]
             handle.gqt_qmatmul_fused.restype = i
+            handle.gqt_decode_smem_bytes.argtypes = [i, i]
+            handle.gqt_decode_smem_bytes.restype = i
             handle.gqt_qmm.argtypes = [vp, i, i, vp, vp, vp, i, i, f, i, vp, vp]
             handle.gqt_qmm.restype = i
             handle.gqt_qmatmul_planes.argtypes = [vp, i, i, vp, vp, i, i, f, i, i, vp, vp]

@@ -2,7 +2,10 @@
 
 K1, K3 and K7 (``csrc/qmatmul.cu``, arithmetic in ``csrc/qmm_common.cuh``)
 read the GPTQ interchange layout directly and take contiguous groups of a
-multiple of 128, 2, 4 or 8 bits, bf16 activations and fp16 scales.
+multiple of 128, 2, 4 or 8 bits, bf16 activations and fp16 scales. K3 and
+K7 run their own decode kernel at M <= 16 (``csrc/qmm_decode.cuh``: a
+shared-memory ring, K split across a thread-block cluster); its launch plan,
+``decode_plan``, is computed here and handed to the C entry.
 
 - K1 (``qmatmul``) replaces the TPU kernel ``_qmm_rt_sym_kernel``
   (``gptqmodel_tpu/ops/pallas_qmatmul.py:198``, reached through ``qmatmul``
@@ -54,6 +57,9 @@ float32 model on the CPU follows the JAX package's kernels.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
 
 from gptqmodel_tpu_torch.ops import _build
@@ -61,6 +67,73 @@ from gptqmodel_tpu_torch.ops.pack import unpack_qweight, unpack_qzeros
 
 KERNEL_BITS = (2, 4, 8)
 PLANE_BITS = (3, 5, 6, 7)  # K4 and K5
+
+# K3's and K7's decode kernel (csrc/qmm_decode.cuh) at M <= DECODE_MAX_M: a
+# block owns DECODE_COLS columns and a whole-group share of K; the blocks of
+# one column tile form a cluster of at most DECODE_MAX_SPLIT (the header's
+# kDecodeMaxM, kDecodeCols and kDecodeMaxSplit). The kernel sizes its own
+# shared memory; the plan gives it only the cluster size.
+DECODE_MAX_M = 16
+DECODE_COLS = 64
+DECODE_MAX_SPLIT = 8
+# the plan's largest cluster: on an H100, clusters of 8 ran the o and down
+# projections 4-10% slower than clusters of 7 (scripts/decode_sweep.py, PERF.md)
+DECODE_PLAN_SPLIT = 7
+H100_SMS = 132
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodePlan:
+    """How the decode kernel covers an ``[M, K] x [K, N]`` product: ``tiles``
+    column tiles of ``DECODE_COLS``, each a cluster of ``split`` blocks
+    along K."""
+
+    tiles: int
+    split: int
+    groups: int
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.split
+
+    def groups_of(self, rank: int) -> range:
+        """The groups that cluster rank ``rank`` sums (the kernel's own rule)."""
+        return range(rank * self.groups // self.split, (rank + 1) * self.groups // self.split)
+
+
+def decode_blocks_per_sm(M: int) -> int:
+    """The blocks per SM the plan aims at: about as many as are resident at
+    once (registers and shared memory; measured on an H100 with chip_smoke's
+    K3 cases, PERF.md), so that the last ones do not run alone."""
+    return 4 if M <= 8 else 2
+
+
+def decode_plan(M: int, K: int, N: int, group_size: int, sms: int = H100_SMS) -> DecodePlan:
+    """The decode kernel's launch: the fewest cluster blocks (at most
+    ``DECODE_PLAN_SPLIT``, at most one per group) that give
+    ``decode_blocks_per_sm(M)`` blocks per SM."""
+    g = group_size if group_size > 0 else K
+    G = K // g
+    tiles = -(-N // DECODE_COLS)
+    split = max(1, min(DECODE_PLAN_SPLIT, G, -(-decode_blocks_per_sm(M) * sms // tiles)))
+    return DecodePlan(tiles, split, G)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _decode_split(x, qweight, scales, *, group_size, name) -> int:
+    """The decode plan's split for K3's or K7's C entry, or 0 above
+    ``DECODE_MAX_M`` rows, where K1's tiles run."""
+    M, K = x.shape
+    if M > DECODE_MAX_M:
+        return 0
+    if qweight.data_ptr() % 16 or scales.data_ptr() % 16:
+        raise ValueError(f"{name} copies weights and scales in 16-byte pieces at M <= "
+                         f"{DECODE_MAX_M}: both must be 16-byte aligned")
+    return decode_plan(M, K, qweight.shape[1], group_size, _sm_count(x.device.index or 0)).split
 
 
 def qmatmul_supported(bits: int, group_size: int, K: int, N: int) -> bool:
@@ -188,9 +261,11 @@ def qmatmul_asym(x, qweight, scales, qzeros, *, bits, group_size):
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     if M == 0:
         return out
-    rc = _build.lib().gqt_qmatmul_asym(
+    lib = _build.lib()
+    split = _decode_split(x, qweight, scales, group_size=g, name="K3")
+    rc = lib.gqt_qmatmul_asym(
         x.data_ptr(), M, K, qweight.data_ptr(), scales.data_ptr(), qzeros.data_ptr(), N, g,
-        bits, out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
+        bits, split, out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(rc, "qmatmul_asym")
     _build.LAUNCHES["qmatmul_asym"] += 1
@@ -227,9 +302,11 @@ def qmatmul_fused(x, qweight, scales, *, bits, group_size, zero_const):
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     if M == 0:
         return out
-    rc = _build.lib().gqt_qmatmul_fused(
+    lib = _build.lib()
+    split = _decode_split(x, qweight, scales, group_size=g, name="K7")
+    rc = lib.gqt_qmatmul_fused(
         x.data_ptr(), M, K, qweight.data_ptr(), scales.data_ptr(), N, g,
-        float(zero_const), bits, out.data_ptr(),
+        float(zero_const), bits, split, out.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(rc, "qmatmul_fused")

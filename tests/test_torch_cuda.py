@@ -8,6 +8,7 @@ it runs on a machine that has only PyTorch:
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -330,6 +331,94 @@ def test_qmatmul_fused_refuses_what_it_does_not_take(cuda_device):
         qmatmul_fused(x, p.qweight, p.scales, bits=4, group_size=128, zero_const=-1.0)
     with pytest.raises(ValueError):
         qmatmul_fused(x, p.qweight, p.scales.cpu(), **kw)
+
+
+# ---------------------------------------------- K3 and K7 at decode (M <= 16)
+
+# (K, N, g): 7 groups over a ragged last column tile (N = 200, or 208 for
+# 2-bit K3, whose zeros rows need N % 16 == 0), one group, and Llama-3-8B's
+# qkv and down; M = 1..8 one n-tile of tokens, 9 and 16 two
+DECODE_SHAPES = {"seven_groups_ragged": (896, 200, 128), "one_group": (128, 384, 128),
+                 "qkv": (4096, 6144, 128), "down": (14336, 4096, 128)}
+DECODE_MS = [1, 2, 7, 8, 9, 16]
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_module(kernel, bits, shape):
+    K, N, g = DECODE_SHAPES[shape]
+    sym = kernel == "qmatmul_fused"
+    N += 8 if N * bits % 32 else 0
+    rng = np.random.default_rng([bits, K, N, int(sym)])
+    return post_init_module(random_quant_linear(rng, K, N, bits, g, device="cuda", sym=sym))
+
+
+def _decode_fns(kernel, p):
+    if kernel == "qmatmul_asym":
+        args, kw = (p.qweight, p.scales, p.qzeros), dict(bits=p.bits, group_size=p.group_size)
+        return (lambda x: qmatmul_asym(x, *args, **kw),
+                lambda x: qmatmul_asym_plain(x, *args, **kw))
+    args = (p.qweight, p.scales)
+    kw = dict(bits=p.bits, group_size=p.group_size, zero_const=p.zero_const)
+    return (lambda x: qmatmul_fused(x, *args, **kw),
+            lambda x: qmatmul_fused_plain(x, *args, **kw))
+
+
+@pytest.mark.parametrize("shape", list(DECODE_SHAPES))
+@pytest.mark.parametrize("M", DECODE_MS)
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("kernel", ["qmatmul_asym", "qmatmul_fused"])
+def test_decode_kernel_matches_plain(cuda_device, kernel, bits, M, shape):
+    """K3 and K7 at M <= 16 run the decode kernel (cluster split along K,
+    shared-memory ring): exact products, f32 sums in another order, one
+    rounding to bf16: 1e-3 relative, and the same bits on every run."""
+    p = _decode_module(kernel, bits, shape)
+    x = _x(np.random.default_rng([M, bits]), M, p.in_features, cuda_device)
+    run, plain = _decode_fns(kernel, p)
+    before = _build.LAUNCHES[kernel]
+    y = run(x)
+    ref = plain(x)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[kernel] == before + 1
+    assert y.dtype == torch.bfloat16 and y.shape == (M, p.out_features)
+    assert _rel(y, ref) <= 1e-3
+    assert torch.equal(y, run(x))
+
+
+@pytest.mark.parametrize("M", [1, 9, 16])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("kernel", ["qmatmul_asym", "qmatmul_fused"])
+def test_decode_kernel_exact_inputs_give_equal_outputs(cuda_device, kernel, bits, M):
+    """Integer activations and power-of-two scales over 7 groups and a
+    ragged column tile: every product and sum is exact, so the decode
+    kernel and the plain version agree bit for bit."""
+    rng = np.random.default_rng([41, bits, M])
+    p = dataclasses.replace(_decode_module(kernel, bits, "seven_groups_ragged"))
+    p.scales = _pow2_scales(rng, p, cuda_device)
+    run, plain = _decode_fns(kernel, p)
+    x = _int_x(rng, M, p.in_features, cuda_device)
+    assert torch.equal(run(x), plain(x))
+
+
+def test_decode_kernel_refuses_a_split_or_pointers_it_does_not_take(cuda_device, monkeypatch):
+    """The C entry refuses a cluster split outside 1 .. min(8, K / g); an
+    unaligned weight or scale pointer raises before the launch."""
+    from gptqmodel_tpu_torch.ops import qmatmul as qmatmul_mod
+
+    p = _decode_module("qmatmul_asym", 4, "seven_groups_ragged")
+    x = _x(np.random.default_rng(43), 8, p.in_features, cuda_device)
+    run, _ = _decode_fns("qmatmul_asym", p)
+    plan = qmatmul_mod.decode_plan
+    for split in (0, 8, 9):  # 7 groups
+        monkeypatch.setattr(qmatmul_mod, "decode_plan",
+                            lambda *a, s=split: dataclasses.replace(plan(*a), split=s))
+        with pytest.raises(ValueError, match="unsupported"):
+            run(x)
+    monkeypatch.undo()
+    shifted = torch.empty(p.scales.numel() + 2, dtype=p.scales.dtype, device=cuda_device)
+    scales = shifted[2:].view_as(p.scales)
+    scales.copy_(p.scales)
+    with pytest.raises(ValueError, match="aligned"):
+        qmatmul_asym(x, p.qweight, scales, p.qzeros, bits=4, group_size=128)
 
 
 def test_group32_facade_runs_k6(cuda_device, tmp_path, monkeypatch):
