@@ -8,15 +8,18 @@ Phases, each printing JSON lines on stdout:
 1. ``build``: nvcc compiles every kernel of ``gptqmodel_tpu_torch/csrc`` for
    sm_90a, one process per source, and the phase prints the commands and
    what ptxas says of each kernel (registers, static shared memory, spills),
-   and the dynamic shared memory of K3's and K7's decode kernel by bits and
-   M.
+   the dynamic shared memory of the decode kernel (``qmm_decode.cuh``: K1,
+   K3, K7 and both passes of K2 at M <= 16) by bits and M, and its
+   instantiations; it fails if K1's or K2's old 16-row tile is still built.
 2. ``kernels``: each kernel against its plain PyTorch version on the card,
    at the shapes of Llama-3-8B's main paths: K1 (``qmatmul``) at the qkv, o,
-   gate_up and down projections for M = 1, 8 and 1024, K3 (``qmatmul_asym``,
+   gate_up and down projections for M = 1, 8, 16 (its decode kernel) and
+   1024, twice each for equal bits, K3 (``qmatmul_asym``,
    random zeros per group and column) at the same projections for M = 1, 8,
    16 (its decode kernel) and 1024 at 4 bits, with K1 timed beside it on its
    weights, and at qkv, M = 8 at 2 and 8 bits, twice each for equal bits, K2
-   (``qmlp``) at D = 4096, F = 14336 for M = 1, 8 and 64, with the weights
+   (``qmlp``) at D = 4096, F = 14336 for M = 1, 8, 16 (both passes on the
+   decode kernel) and 64, twice each for equal bits, with the weights
    rotated through copies that exceed the 50 MB L2; K8 (``gptq_whole_solve``) at the four
    solve groups (qkv 6144 x 4096, o 4096 x 4096, gate_up 28672 x 4096, down
    4096 x 14336; g = 128, symmetric, 4-bit; Hinv from ``hessian_inverse`` of
@@ -148,10 +151,13 @@ Phases, each printing JSON lines on stdout:
    routed rows).
 
 Then ``{"phase": "profiler"}``: how many torch.profiler sessions lost
-kernel records and were run again, and how many were read from the records
-they kept (``device_ms``). Then the card's name and power limit, the
-``{"kernels": [...]}`` line and,
-last, ``{"ok": true, "device": {...}}``. Each record of the kernels line
+kernel records and were run again, how many were read from the records
+they kept (``device_ms``), and how many timed loops of K1, K2, K3 and K7
+read under their bound and were timed again (``timed``; a third such
+reading fails the run). K1's and K2's cases also name the kernels the
+profiler saw; at M <= 16 they must all be ``qmm_decode_kernel``. Then the
+card's name and power limit, the ``{"kernels": [...]}`` line and, last,
+``{"ok": true, "device": {...}}``. Each record of the kernels line
 names its units: ``launches`` counts a whole run of the main path
 (``launches_per``: K1 and K2 the generate run, K3 the asym-act-slice
 generate run, K6 the g32-slice generate run, K7 the fused generate run, K4
@@ -194,12 +200,12 @@ BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM
 FP32_FLOPS = 67e12  # non-tensor float32 peak, H100 SXM
 L2_BYTES = 50e6
 B, T, NEW = 8, 128, 64
-K1_MS = (1, 8, 1024)
-# K3 and K7 at every projection at K3_MS, 4-bit (M <= 16 on their decode
-# kernel); K3 also 2- and 8-bit at qkv, M = 8
+# K1, K3 and K7 at every projection, 4-bit (M <= 16 on the decode kernel);
+# K3 also 2- and 8-bit at qkv, M = 8; K2 on the decode kernel at M <= 16
+K1_MS = (1, 8, 16, 1024)
 K3_MS = K7_MS = (1, 8, 16, 1024)
 K3_EXTRA_BITS = {"qkv": (2, 8)}
-K2_MS = (1, 8, 64)
+K2_MS = (1, 8, 16, 64)
 # K1 and its plain version sum the same exact products in f32 and round once
 # to bf16; K2 also rounds inner to bf16 in both. Only the f32 order differs.
 K1_TOL, K2_TOL = 1e-3, 2e-3
@@ -217,10 +223,11 @@ K6_REF_M = 1024  # the prefill's rows, on the reference route: timed for the rec
 K6_TOL = K7_TOL = K1_TOL
 # the fused phase: the llama slice's model under GPTQ_TPU_RT_FUSED=1
 FUSED_NEW = 16
-# K4 and K5: 3-bit stitched at every projection for K1_MS, symmetric (K4)
+# K4 and K5: 3-bit stitched at every projection for PLANES_MS, symmetric (K4)
 # and with random zeros per group and column (K5); the planar layouts at qkv,
 # M = 8, both kernels. As K1 and K3: exact products and z*s, f32 sums in
 # another order
+PLANES_MS = (1, 8, 1024)
 PLANE_LAYOUTS = ((3, True), (5, True), (6, True), (7, True))  # (bits, planar) at qkv
 K4_TOL = K5_TOL = K1_TOL
 PLANES_REF_M = 1024  # the reference route (dequantize, then torch.matmul): for the record
@@ -1272,7 +1279,7 @@ def serve_timing(spec, params, ids, kv_quant, prefill_counts: dict,
 
 # Profiler sessions that lost kernel records: how many, and how many of those
 # were read from the records they kept (see ``device_ms``)
-PROFILER_SHORT = {"sessions": 0, "estimated": 0}
+PROFILER_SHORT = {"sessions": 0, "estimated": 0, "under_bound": 0}
 
 
 def device_ms(run, per: int, activities=None, uniform: bool = True) -> tuple[float, list]:
@@ -1318,10 +1325,12 @@ def device_ms(run, per: int, activities=None, uniform: bool = True) -> tuple[flo
     raise CheckFailed("torch.profiler recorded fewer kernels than calls in three sessions")
 
 
-def timed(fn, n_copies: int, budget_ms: float = 150.0) -> dict:
-    """Device time per call (``ms``: torch.profiler, kernels only) and
-    wall time per call (``wall_ms``: CUDA events around the loop, host
-    launch gaps included)."""
+def timed(fn, n_copies: int, budget_ms: float = 150.0, floor_ms: float = 0.0) -> dict:
+    """Device time per call (``ms``: torch.profiler, kernels only), wall
+    time per call (``wall_ms``: CUDA events around the loop, host launch
+    gaps included) and the names of the kernels the profiler saw. A reading
+    under ``floor_ms`` (the work's bound: lost records) is rejected and the
+    loop timed again; a third such reading fails."""
     import torch
 
     fn(0)
@@ -1339,8 +1348,22 @@ def timed(fn, n_copies: int, budget_ms: float = 150.0) -> dict:
             fn(i % n_copies)
         end.record()
 
-    ms = device_ms(loop, iters)[0]
-    return {"ms": ms, "wall_ms": start.elapsed_time(end) / iters}
+    for _ in range(3):
+        ms, rows = device_ms(loop, iters)
+        if ms >= floor_ms:
+            return {"ms": ms, "wall_ms": start.elapsed_time(end) / iters,
+                    "kernels": [name for name, _ in rows]}
+        PROFILER_SHORT["under_bound"] += 1
+        print(f"chip_smoke: {ms} ms a call is under the bound of {floor_ms} ms: timed again",
+              file=sys.stderr)
+    raise CheckFailed(f"three readings under the bound of {floor_ms} ms")
+
+
+def on_decode_kernel(names: list) -> bool:
+    """Whether every kernel the profiler saw is an instantiation of the
+    decode kernel (``csrc/qmm_decode.cuh``)."""
+    return bool(names) and all("qmm_decode_kernel<" in n for n in names)
+
 
 def errors(y, ref) -> tuple[float, float]:
     """Relative error in norm and largest absolute error."""
@@ -1382,7 +1405,8 @@ def k3_kernel_cases(dev, rng, shapes: dict) -> list:
     ``torch._weight_int4pack_mm`` with the zeros folded into its
     scales-and-zeros as the yardstick at 4 bits. K1 is timed beside it on
     the same qweight and scales (``zero_const = 8``; its result is not
-    K3's), the control of the same tile at prefill."""
+    K3's), the control of the same kernel without zeros: the decode kernel
+    at M <= 16, the same tile at prefill."""
     import torch
 
     from gptqmodel_tpu_torch.ops import _build
@@ -1416,9 +1440,13 @@ def k3_kernel_cases(dev, rng, shapes: dict) -> list:
                 require(_build.LAUNCHES["qmatmul_asym"] == before + 2, "K3 did not launch")
                 identical = torch.equal(y, y2)
                 rel, mx = errors(y, ref)
-                k = timed(lambda i: qmatmul_asym(*ops(i), **kw), len(mods))
+                b_ms, b_by = bound(x.nbytes + wbytes + y.nbytes, 2.0 * M * N * K)
+                k1_b = bound(x.nbytes + wbytes - base.qzeros.nbytes + y.nbytes,
+                             2.0 * M * N * K)[0]
+                k = timed(lambda i: qmatmul_asym(*ops(i), **kw), len(mods), floor_ms=b_ms)
                 k1 = timed(lambda i: qmatmul(x, mods[i].qweight, mods[i].scales, bits=bits,
-                                             group_size=128, zero_const=8.0), len(mods))
+                                             group_size=128, zero_const=8.0), len(mods),
+                           floor_ms=k1_b)
                 pl_ = timed(lambda i: qmatmul_asym_plain(*ops(i), **kw), len(mods),
                             budget_ms=100.0)
                 lib, lib_rel = None, None
@@ -1427,7 +1455,6 @@ def k3_kernel_cases(dev, rng, shapes: dict) -> list:
                                                                     lib_w[i][1]), len(mods))
                     lib_rel = errors(torch._weight_int4pack_mm(x, lib_w[0][0], 128,
                                                                lib_w[0][1]), ref)[0]
-                b_ms, b_by = bound(x.nbytes + wbytes + y.nbytes, 2.0 * M * N * K)
                 case = {"kernel": "qmatmul_asym", "proj": proj, "bits": bits, "M": M, "K": K,
                         "N": N, "rel_err": rel, "max_abs_err": mx, "identical_runs": identical,
                         "ms": k["ms"], "wall_ms": k["wall_ms"], "k1_ms": k1["ms"],
@@ -1570,15 +1597,15 @@ def k7_kernel_cases(dev, rng, shapes: dict) -> list:
             require(_build.LAUNCHES["qmatmul_fused"] == before + 2, "K7 did not launch")
             identical = torch.equal(y, y2)
             rel, mx = errors(y, ref)
-            k = timed(lambda i: qmatmul_fused(*ops(i), **kw), len(mods))
-            k1 = timed(lambda i: qmatmul(*ops(i), **kw), len(mods))
+            b_ms, b_by = bound(x.nbytes + wbytes + y.nbytes, 2.0 * M * N * K)
+            k = timed(lambda i: qmatmul_fused(*ops(i), **kw), len(mods), floor_ms=b_ms)
+            k1 = timed(lambda i: qmatmul(*ops(i), **kw), len(mods), floor_ms=b_ms)
             pl_ = timed(lambda i: qmatmul_fused_plain(*ops(i), **kw), len(mods),
                         budget_ms=100.0)
             lib = None
             if lib_w is not None:
                 lib = timed(lambda i: torch._weight_int4pack_mm(x, lib_w[i][0], 128,
                                                                 lib_w[i][1]), len(mods))
-            b_ms, b_by = bound(x.nbytes + wbytes + y.nbytes, 2.0 * M * N * K)
             case = {"kernel": "qmatmul_fused", "proj": proj, "M": M, "K": K, "N": N,
                     "rel_err": rel, "max_abs_err": mx, "identical_runs": identical,
                     "ms": k["ms"], "wall_ms": k["wall_ms"], "k1_ms": k1["ms"],
@@ -1640,7 +1667,7 @@ def g32_phases(root: Path, card: str) -> dict:
 
 def planes_kernel_cases(dev, rng, shapes: dict) -> list:
     """K4 and K5 against their plain versions at Llama-3-8B's projections
-    (``shapes``: proj -> K, N), 3-bit stitched at K1_MS, and the planar
+    (``shapes``: proj -> K, N), 3-bit stitched at PLANES_MS, and the planar
     layouts of ``PLANE_LAYOUTS`` at qkv, M = 8; group 128, symmetric (K4) and
     with random zeros per group and column (K5); two runs each for equal
     bits, the weights rotated through copies past the L2. No PyTorch call
@@ -1658,7 +1685,7 @@ def planes_kernel_cases(dev, rng, shapes: dict) -> list:
     from gptqmodel_tpu_torch.utils.testing import random_quant_linear
 
     cases = []
-    variants = [(proj, 3, False, sym, K1_MS) for proj in shapes for sym in (True, False)]
+    variants = [(proj, 3, False, sym, PLANES_MS) for proj in shapes for sym in (True, False)]
     variants += [("qkv", bits, planar, sym, (B,)) for bits, planar in PLANE_LAYOUTS
                  for sym in (True, False)]
     for proj, bits, planar, sym, ms in variants:
@@ -1824,7 +1851,7 @@ def main() -> int:
     from gptqmodel_tpu_torch.models.optimize import _concat_quant
     from gptqmodel_tpu_torch.ops import _build
     from gptqmodel_tpu_torch.ops.qmatmul import (
-        KERNEL_BITS, qmatmul, qmatmul_plain,
+        DECODE_MAX_M, KERNEL_BITS, qmatmul, qmatmul_plain,
     )
     from gptqmodel_tpu_torch.ops.qmlp import qmlp, qmlp_plain
     from gptqmodel_tpu_torch.ops.gptq_solve import (
@@ -1850,11 +1877,24 @@ def main() -> int:
     info = _build.BUILD_INFO
     kernels_ptxas = ptxas_summary(info["ptxas"])
     require(kernels_ptxas, "ptxas reported no kernel")
+    decode_kernels = sorted(k for k in kernels_ptxas if k.startswith("qmm_decode_kernel<"))
+    # K1 and K2's down pass (UniformZero) and K2's gate/up pass (GateUpPairs)
+    # at M <= 16, in place of K1's and K2's old 16-row tiles
+    for bits in KERNEL_BITS:
+        for nt in (1, 2):
+            for z in ("UniformZero", "GateUpPairs"):
+                require(f"qmm_decode_kernel<{bits},{nt},{z},0>" in decode_kernels,
+                        f"no {bits}-bit {z} decode kernel for {8 * nt} rows in the build")
+    old_tile = r"qmatmul_kernel<\d,1,1,UniformZero(,0)?>|qmlp_gate_up_kernel<\d,1>"
+    old_tiles = [k for k in kernels_ptxas if re.fullmatch(old_tile, k)]
+    require(not old_tiles, f"K1's or K2's 16-row tile is still built: {old_tiles}")
     build_rec = {"phase": "build", "seconds": info["seconds"], "compile": info["compile"],
                  "link": info["link"], "ptxas": kernels_ptxas,
+                 # of every decode kernel instantiation, which sizes its own
                  "decode_dynamic_smem": {f"{bits}-bit": {M: smem_of(bits, M)
                                                          for M in (1, 8, 16)}
                                          for bits in KERNEL_BITS},
+                 "decode_kernels": decode_kernels,
                  "torch": torch.__version__, "cuda": torch.version.cuda}
     emit(build_rec)
     record["build"] = build_rec
@@ -1882,11 +1922,15 @@ def main() -> int:
             kw = dict(bits=4, group_size=128, zero_const=zc)
             before = _build.LAUNCHES["qmatmul"]
             y = qmatmul(x, mods[0].qweight, mods[0].scales, **kw)
+            y2 = qmatmul(x, mods[0].qweight, mods[0].scales, **kw)
             ref = qmatmul_plain(x, mods[0].qweight, mods[0].scales, **kw)
             torch.cuda.synchronize()
-            require(_build.LAUNCHES["qmatmul"] == before + 1, "qmatmul did not launch")
+            require(_build.LAUNCHES["qmatmul"] == before + 2, "qmatmul did not launch")
+            identical = torch.equal(y, y2)
             rel, mx = errors(y, ref)
-            k = timed(lambda i: qmatmul(x, mods[i].qweight, mods[i].scales, **kw), len(mods))
+            b_ms, b_by = bound(x.nbytes + wbytes + y.nbytes, 2.0 * M * N * K)
+            k = timed(lambda i: qmatmul(x, mods[i].qweight, mods[i].scales, **kw), len(mods),
+                      floor_ms=b_ms)
             p = timed(lambda i: qmatmul_plain(x, mods[i].qweight, mods[i].scales, **kw),
                       len(mods), budget_ms=100.0)
             lib, lib_rel = None, None
@@ -1895,9 +1939,9 @@ def main() -> int:
                                                                 lib_w[i][1]), len(mods))
                 lib_rel = errors(torch._weight_int4pack_mm(x, lib_w[0][0], 128, lib_w[0][1]),
                                  ref)[0]
-            b_ms, b_by = bound(x.nbytes + wbytes + y.nbytes, 2.0 * M * N * K)
             case = {"kernel": "qmatmul", "proj": proj, "M": M, "K": K, "N": N,
-                    "rel_err": rel, "max_abs_err": mx, "ms": k["ms"], "wall_ms": k["wall_ms"],
+                    "rel_err": rel, "max_abs_err": mx, "identical_runs": identical,
+                    "ms": k["ms"], "wall_ms": k["wall_ms"], "kernel_names": k["kernels"],
                     "plain_ms": p["ms"], "bound_ms": b_ms, "bound_by": b_by,
                     "library_ms": lib["ms"] if lib else None, "library": library,
                     "library_rel_err": lib_rel, "plain_wall_ms": p["wall_ms"],
@@ -1906,6 +1950,9 @@ def main() -> int:
             cases.append(case)
             emit({"phase": "kernels", **case})
             require(rel <= K1_TOL, f"K1 {proj} M={M}: rel {rel} > {K1_TOL}")
+            require(identical, f"K1 {proj} M={M}: two runs differ")
+            require(M > DECODE_MAX_M or on_decode_kernel(k["kernels"]),
+                    f"K1 {proj} M={M} ran {k['kernels']}")
         del base, mods, lib_w
 
     cases += k3_kernel_cases(dev, rng, k1_shapes)
@@ -1924,16 +1971,18 @@ def main() -> int:
         x = torch.from_numpy(rng.standard_normal((M, D), dtype=np.float32)).to(dev).to(
             torch.bfloat16)
         before = _build.LAUNCHES["qmlp"]
-        y = qmlp(x, *sets[0], **kw)
+        y, y2 = qmlp(x, *sets[0], **kw), qmlp(x, *sets[0], **kw)
         ref = qmlp_plain(x, *sets[0], **kw)
         torch.cuda.synchronize()
-        require(_build.LAUNCHES["qmlp"] == before + 1, "qmlp did not launch")
+        require(_build.LAUNCHES["qmlp"] == before + 2, "qmlp did not launch")
+        identical = torch.equal(y, y2)
         rel, mx = errors(y, ref)
-        k = timed(lambda i: qmlp(x, *sets[i], **kw), len(sets))
-        p = timed(lambda i: qmlp_plain(x, *sets[i], **kw), len(sets), budget_ms=100.0)
         b_ms, b_by = bound(x.nbytes + wbytes + y.nbytes, 6.0 * M * D * F)
+        k = timed(lambda i: qmlp(x, *sets[i], **kw), len(sets), floor_ms=b_ms)
+        p = timed(lambda i: qmlp_plain(x, *sets[i], **kw), len(sets), budget_ms=100.0)
         case = {"kernel": "qmlp", "proj": "mlp", "M": M, "D": D, "F": F, "rel_err": rel,
-                "max_abs_err": mx, "ms": k["ms"], "wall_ms": k["wall_ms"], "plain_ms": p["ms"],
+                "max_abs_err": mx, "identical_runs": identical, "ms": k["ms"],
+                "wall_ms": k["wall_ms"], "kernel_names": k["kernels"], "plain_ms": p["ms"],
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                 "library": "null: no PyTorch call computes the fused quantized MLP",
                 "plain_wall_ms": p["wall_ms"],
@@ -1941,6 +1990,12 @@ def main() -> int:
         cases.append(case)
         emit({"phase": "kernels", **case})
         require(rel <= K2_TOL, f"K2 M={M}: rel {rel} > {K2_TOL}")
+        require(identical, f"K2 M={M}: two runs differ")
+        # both passes: the paired gate/up epilogue, then K1's launch on inner
+        require(M > DECODE_MAX_M or (on_decode_kernel(k["kernels"])
+                                     and any("GateUpPairs" in n for n in k["kernels"])
+                                     and any("UniformZero" in n for n in k["kernels"])),
+                f"K2 M={M} ran {k['kernels']}")
     del sets, weights, gu, down
 
     def event_ms(fn):
@@ -2152,7 +2207,8 @@ def main() -> int:
 
     summary = [
         {"name": "qmatmul (K1)", "route": "cuda",
-         "source": "gptqmodel_tpu_torch/csrc/qmatmul.cu",
+         "source": ("gptqmodel_tpu_torch/csrc/qmm_decode.cuh (M <= 16), "
+                    "gptqmodel_tpu_torch/csrc/qmatmul.cu (M > 16)"),
          "replaces": "gptqmodel_tpu/ops/pallas_qmatmul.py:198",
          "launches": main_counts["qmatmul"], "launches_per": "generate run",
          "ms_per": "decode step",
@@ -2206,7 +2262,8 @@ def main() -> int:
          **per_step("qmatmul_planes_asym", [("qkv", L), ("o", L), ("gate_up", L), ("down", L)],
                     bits=3, planar=False)},
         {"name": "qmlp (K2)", "route": "cuda",
-         "source": "gptqmodel_tpu_torch/csrc/qmlp.cu",
+         "source": ("gptqmodel_tpu_torch/csrc/qmm_decode.cuh (M <= 16), "
+                    "gptqmodel_tpu_torch/csrc/qmlp.cu (M > 16)"),
          "replaces": "gptqmodel_tpu/ops/pallas_qmlp.py:84",
          "launches": main_counts["qmlp"], "launches_per": "generate run",
          "ms_per": "decode step",
@@ -2267,7 +2324,8 @@ def main() -> int:
     record["summary"] = summary
     record["profiler_short"] = dict(PROFILER_SHORT)
     emit({"phase": "profiler", "short_sessions": PROFILER_SHORT["sessions"],
-          "read_from_kept_records": PROFILER_SHORT["estimated"]})
+          "read_from_kept_records": PROFILER_SHORT["estimated"],
+          "readings_under_bound": PROFILER_SHORT["under_bound"]})
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1) + "\n")
     print(card, flush=True)
     emit({"kernels": summary})

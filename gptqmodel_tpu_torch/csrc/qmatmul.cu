@@ -17,7 +17,7 @@
 // (M <= 16) the packed weights, bits/8 bytes each, read once; at prefill
 // (M = 1024) the 2*M*N*K operations.
 //
-// Decode, K3 and K7 (M <= 16): qmm_decode.cuh. K1's register tile
+// Decode, K1, K3 and K7 (M <= 16): qmm_decode.cuh. K1's register tile
 // (qmm_common.cuh) keeps too few bytes in flight for this card: a lane
 // prefetches only its next 128 rows into registers, some 8 KB an SM where
 // 25 KB are needed, the 4 warps of a block walk K in long dependent
@@ -30,15 +30,14 @@
 // operand so that no row is padding; and adds the cluster's partials
 // through distributed shared memory in rank order.
 //
-// Prefill (M > 16), and K1 at every M: K1's tile (qmm_common.cuh), a block
-// of 4 warps over one column tile; they split K by whole groups and add
-// their results in warp order through shared memory. At prefill a warp holds
-// a 32 x 32 output tile, so each weight fragment serves 2 row tiles and each
-// x fragment 4 column tiles; the row blocks of one column tile are
-// neighbours in launch order and meet the weights in L2. It uses mma.sync,
-// not wgmma or TMA, so it does not reach the tensor-core bound. K3 is the
-// same tile with another zero-point source (GroupZeros), K7 the same with
-// FOLD, so K1's instantiations do not change.
+// Prefill (M > 16): K1's tile (qmm_common.cuh), a block of 4 warps over one
+// column tile; they split K by whole groups and add their results in warp
+// order through shared memory. At prefill a warp holds a 32 x 32 output
+// tile, so each weight fragment serves 2 row tiles and each x fragment 4
+// column tiles; the row blocks of one column tile are neighbours in launch
+// order and meet the weights in L2. It uses mma.sync, not wgmma or TMA, so it
+// does not reach the tensor-core bound. K3 is the same tile with another
+// zero-point source (GroupZeros), K7 the same with FOLD.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -50,18 +49,7 @@
 
 namespace gqt {
 
-// K1 at every M.
-template <int BITS>
-void dispatch_qmatmul(const void* x, int M, int K, const void* qw, const void* sc, int N,
-                      int g, UniformZero zero, void* out, cudaStream_t stream) {
-  const auto kernel_of = [](auto tile) {
-    using T = decltype(tile);
-    return qmatmul_kernel<BITS, T::MT, T::NT, UniformZero>;
-  };
-  launch_by_m(kernel_of, x, M, K, qw, sc, N, g, zero, out, stream);
-}
-
-// K3 and K7: the decode kernel at M <= 16 (split from the launch plan),
+// K1, K3 and K7: the decode kernel at M <= 16 (split from the launch plan),
 // launch_by_m's tiles, from kernel_of, beyond. launch_by_m picks Tile<1, 1>
 // only at M <= 16, so the callers' kernel_of maps that tile to Tile<4, 1>'s
 // kernel, which it never launches, and emits no decode tile of its own.
@@ -117,6 +105,18 @@ __global__ void __launch_bounds__(kThreads, 3)
 }
 
 template <int BITS>
+int dispatch_qmatmul(const void* x, int M, int K, const void* qw, const void* sc, int N, int g,
+                     float zero_const, int split, void* out, cudaStream_t stream) {
+  using Z = UniformZero;
+  const auto kernel_of = [](auto tile) {
+    using T = decltype(tile);
+    return qmatmul_kernel<BITS, T::MT == 1 ? 4 : T::MT, T::NT, Z>;
+  };
+  return dispatch_decode_or_tile<BITS, Z, false>(kernel_of, x, M, K, qw, sc, N, g, Z{zero_const},
+                                                 split, out, stream);
+}
+
+template <int BITS>
 int dispatch_asym(const void* x, int M, int K, const void* qw, const void* sc, const void* qz,
                   int N, int g, int split, void* out, cudaStream_t stream) {
   using Z = GroupZeros<BITS>;
@@ -146,25 +146,25 @@ int dispatch_fused(const void* x, int M, int K, const void* qw, const void* sc, 
 
 }  // namespace gqt
 
-// The entry points return 0, -1 for unsupported bits (or, for K3 and K7, a
-// decode split outside 1 .. min(8, K / g)), or the CUDA error of the
-// launch. The caller checks the contract: bf16 x [M, K] (16-byte aligned
-// rows), int32 qweight [K*bits/32, N], fp16 scales [K/g, N], g % 128 == 0,
-// K % g == 0, N % 8 == 0 (K3 also int32 v2 qzeros [K/g, N*bits/32]; K3 and
-// K7 at decode 16-byte aligned qweight and scales); and allocates out
-// [M, N] bf16. K7 (gqt_qmatmul_fused) takes K1's operands and K3's split.
+// The entry points return 0, -1 for unsupported bits or a decode split
+// outside 1 .. min(8, K / g), or the CUDA error of the launch. The caller
+// checks the contract: bf16 x [M, K] (16-byte aligned rows), int32 qweight
+// [K*bits/32, N], fp16 scales [K/g, N], g % 128 == 0, K % g == 0,
+// N % 8 == 0 (K3 also int32 v2 qzeros [K/g, N*bits/32]; at decode 16-byte
+// aligned qweight and scales); and allocates out [M, N] bf16. K7
+// (gqt_qmatmul_fused) takes K1's operands.
 extern "C" int gqt_qmatmul(const void* x, int M, int K, const void* qweight,
                            const void* scales, int N, int group_size, float zero_const,
-                           int bits, void* out, void* stream) {
+                           int bits, int split, void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const gqt::UniformZero z{zero_const};
+  const void* w = qweight;
+  const float zc = zero_const;
   switch (bits) {
-    case 2: gqt::dispatch_qmatmul<2>(x, M, K, qweight, scales, N, group_size, z, out, s); break;
-    case 4: gqt::dispatch_qmatmul<4>(x, M, K, qweight, scales, N, group_size, z, out, s); break;
-    case 8: gqt::dispatch_qmatmul<8>(x, M, K, qweight, scales, N, group_size, z, out, s); break;
+    case 2: return gqt::dispatch_qmatmul<2>(x, M, K, w, scales, N, group_size, zc, split, out, s);
+    case 4: return gqt::dispatch_qmatmul<4>(x, M, K, w, scales, N, group_size, zc, split, out, s);
+    case 8: return gqt::dispatch_qmatmul<8>(x, M, K, w, scales, N, group_size, zc, split, out, s);
     default: return -1;
   }
-  return (int)cudaGetLastError();
 }
 
 extern "C" int gqt_qmatmul_asym(const void* x, int M, int K, const void* qweight,

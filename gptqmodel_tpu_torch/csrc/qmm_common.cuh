@@ -327,10 +327,12 @@ struct Tile {
   static constexpr int MT = MT_, NT = NT_;
 };
 
-// The tile by M, for qmatmul_kernel (K1, K3, K7) and qmm_kernel (K6): decode
-// (M <= 16) one row tile and 8 columns a block; up to 64 rows four row tiles;
-// beyond, 32 x 32 tiles when N allows. kernel_of(Tile<MT, NT>{}) gives the
-// kernel of that tile; both kernels take these operands.
+// The tile by M, for qmatmul_kernel (K1, K3, K7), qmm_kernel (K6) and the
+// planes kernels (K4, K5): decode (M <= 16) one row tile and 8 columns a
+// block, which K1, K3 and K7 never launch (their decode kernel is
+// qmm_decode.cuh); up to 64 rows four row tiles; beyond, 32 x 32 tiles when
+// N allows. kernel_of(Tile<MT, NT>{}) gives the kernel of that tile; the
+// kernels take these operands.
 template <class KernelOf, class Z>
 void launch_by_m(KernelOf kernel_of, const void* x, int M, int K, const void* qw,
                  const void* sc, int N, int g, Z zero, void* out, cudaStream_t stream) {

@@ -1,4 +1,5 @@
-// The decode kernel of K3 and K7 (M <= 16 rows): y[M, N] = x[M, K] @ dequant(qweight).
+// The decode kernel of K1, K3 and K7, and of both passes of K2 (M <= 16
+// rows): y[M, N] = x[M, K] @ dequant(qweight).
 //
 // At decode the packed weights are the whole cost: each is read once and
 // used for at most 16 rows, so the card's 3.35 TB/s bounds the kernel and
@@ -46,11 +47,23 @@
 //   memory, in rank order, and rounds once to bf16: no atomics, the same
 //   bits on every run.
 //
-// The arithmetic is K1's tile's (qmm_common.cuh): K3 adds, per group g,
-// P_g * s_g - X1_g * (z_g * s_g) in float32; K7 (FOLD) sums x * bf16(c * s_g)
-// straight into the accumulator and subtracts X1_g * (zc * s_g) when the
-// group ends. A warp sees half of each group's K-rows, so it applies the
-// correction with the X1 of its own half; the halves add up to the group.
+// The arithmetic is K1's tile's (qmm_common.cuh): K1 and K3 add, per group
+// g, P_g * s_g - X1_g * (z_g * s_g) in float32 (K1's z_g the one zero point
+// zc); K7 (FOLD) sums x * bf16(c * s_g) straight into the accumulator and
+// subtracts X1_g * (zc * s_g) when the group ends. A warp sees half of each
+// group's K-rows, so it applies the correction with the X1 of its own half;
+// the halves add up to the group.
+//
+// K2 (qmlp.cu) launches it twice. Its gate/up pass takes Z = GateUpPairs:
+// K1's one zero point over the fused gate_up weight ([D/PF, 2F], gate
+// first), a tile's 64 columns being gate columns f0 .. f0 + 31 (half 0) and
+// their up columns F + f0 .. F + f0 + 31 (half 1), so that consumer lane
+// (gid, t) of half 1 holds the up sums of the columns whose gate sums its
+// twin of half 0 holds. Only the producers' column map and the last store
+// differ: after the cluster's reduction, rank 0's half 1 hands its float32
+// sums to half 0 through shared memory, and half 0 writes
+// inner = bf16(silu(g) * u), the TPU kernel's rounding, to [M, F]. The down
+// pass is K1's launch on inner.
 
 #pragma once
 
@@ -179,9 +192,21 @@ __device__ __forceinline__ void lds_x(const uint32_t* p, bool ok, uint32_t (&v)[
   }
 }
 
-// Z is GroupZeros<BITS> (K3) or UniformZero (K7, with FOLD); NT n-tiles of
-// 8 tokens (M <= 8 * NT). Grid: (column tiles) x split blocks, clusters of
-// split along x; dynamic shared memory DecodeShape<BITS>::smem_bytes(M).
+// K2's gate/up pass: K1's uniform zero point; the kernel reads the weight's
+// columns in gate/up pairs and writes bf16(silu(g) * u) (above).
+struct GateUpPairs : UniformZero {};
+
+// Where tile column c lies past the tile's first column: c itself, or for
+// K2's gate/up tile (GATE_UP, N = 2F) the up columns' offset past F.
+template <bool GATE_UP>
+__device__ __forceinline__ int tile_offset(int c, int N) {
+  return GATE_UP && c >= kDecodeCols / 2 ? N / 2 + c - kDecodeCols / 2 : c;
+}
+
+// Z is GroupZeros<BITS> (K3), UniformZero (K1; K7 with FOLD) or GateUpPairs
+// (K2's gate/up pass, out [M, N/2]); NT n-tiles of 8 tokens (M <= 8 * NT).
+// Grid: (column tiles) x split blocks, clusters of split along x; dynamic
+// shared memory DecodeShape<BITS>::smem_bytes(M).
 template <int BITS, int NT, class Z, bool FOLD>
 __global__ void __launch_bounds__(kDecodeThreads)
     qmm_decode_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
@@ -191,15 +216,17 @@ __global__ void __launch_bounds__(kDecodeThreads)
   constexpr int PF = D::PF, ST = D::STAGES;
   constexpr int NX = PF / 2;  // x words per token per lane per step
   constexpr int NS = PF / 4;  // mma steps per 4-word-row step
-  constexpr bool kPerGroupZeros = !std::is_same<Z, UniformZero>::value;
-  static_assert(!(FOLD && kPerGroupZeros), "K7 takes one zero point");
+  constexpr bool kPerGroupZeros = std::is_same<Z, GroupZeros<BITS>>::value;
+  constexpr bool kGateUp = std::is_same<Z, GateUpPairs>::value;
+  static_assert(!(FOLD && (kPerGroupZeros || kGateUp)), "K7 takes K1's operands");
   constexpr int KP = kDecodeKParts < D::ITS ? kDecodeKParts : D::ITS;  // K shares in use
   extern __shared__ __align__(128) unsigned char smem[];
 
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   const int split = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
-  const int c0 = (blockIdx.x / split) * kDecodeCols;
+  // the tile's first column; K2's gate/up tile pairs 32 gate columns with their up columns
+  const int c0 = (blockIdx.x / split) * (kGateUp ? kDecodeCols / 2 : kDecodeCols);
   const int G = K / g;
   const int k_begin = (rank * G / split) * g;
   const int n_chunks = ((rank + 1) * G / split - rank * G / split) * (g / kChunk);
@@ -230,12 +257,14 @@ __global__ void __launch_bounds__(kDecodeThreads)
 #pragma unroll
       for (int i0 = 0; i0 < D::WR * (kDecodeCols / 4); i0 += PT) {  // 4 columns of a word row
         const int r = (i0 + pl) / (kDecodeCols / 4), q = (i0 + pl) % (kDecodeCols / 4);
-        if (c0 + 4 * q < N)  // N % 8 == 0: a 4-column piece is whole or absent
+        const int dq = tile_offset<kGateUp>(4 * q, N);
+        if (c0 + dq < N)  // N % 8 == 0: a 4-column piece is whole or absent
           cp_async16(st + 4 * (r * kDecodeRowWords + 4 * q),
-                     qw + (size_t)(k0 / PF + r) * N + c0 + 4 * q);
+                     qw + (size_t)(k0 / PF + r) * N + c0 + dq);
       }
-      if (pl < kDecodeCols / 8 && c0 + 8 * pl < N)
-        cp_async16(st + D::W_BYTES + 16 * pl, sc + (size_t)grp * N + c0 + 8 * pl);
+      if (pl < kDecodeCols / 8 && c0 + tile_offset<kGateUp>(8 * pl, N) < N)
+        cp_async16(st + D::W_BYTES + 16 * pl,
+                   sc + (size_t)grp * N + c0 + tile_offset<kGateUp>(8 * pl, N));
       if constexpr (kPerGroupZeros) {
         const int wi = pl - kDecodeCols / 8;
         if (wi >= 0 && wi < kDecodeCols / PF && c0 / PF + wi < N / PF)
@@ -370,8 +399,11 @@ __global__ void __launch_bounds__(kDecodeThreads)
 
   // the K shares of a column half, then the cluster's ranks, in order
   float* red = reinterpret_cast<float*>(ring);
+  const auto slot_of = [&](int share, int hf, int j, int nt, int i) {
+    return ((((share * 2 + hf) * 2 + j) * NT + nt) * 4 + i) * 32 + lane;
+  };
   const auto slot = [&](int share, int j, int nt, int i) {
-    return ((((share * 2 + half) * 2 + j) * NT + nt) * 4 + i) * 32 + lane;
+    return slot_of(share, half, j, nt, i);
   };
   consumers_sync();  // every consumer is done with the ring: it takes the partials
   if (kp >= 1 && kp < KP) {
@@ -409,7 +441,33 @@ __global__ void __launch_bounds__(kDecodeThreads)
     }
     cluster.sync();  // the peers' shared memory lives until rank 0 has read it
   }
-  if (rank != 0 || kp != 0 || c0 + cw >= N) return;
+  if constexpr (kGateUp) {
+    if (rank != 0 || kp != 0) return;
+    // half 1 hands its up sums to half 0 in its own K-share slots, which
+    // only its lanes have read, each its own
+    if (half == 1) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) red[slot(0, j, nt, i)] = acc[j][nt][i];
+    }
+    asm volatile("bar.sync 2, 64;\n" ::: "memory");  // the kp == 0 warps of both halves
+    if (half == 1) return;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {  // silu(g) * u in f32, as qmlp.cu's MT = 4 pass
+          const float gt = acc[j][nt][i];
+          acc[j][nt][i] = gt / (1.f + expf(-gt)) * red[slot_of(0, 1, j, nt, i)];
+        }
+    N /= 2;  // inner [M, F]: gate column f0 + cw is inner's column
+  } else if (rank != 0 || kp != 0 || c0 + cw >= N) {
+    return;
+  }
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -435,8 +493,10 @@ cudaError_t decode_smem_attribute() {
   return e;
 }
 
-// Launches the decode kernel with the plan's cluster size. Returns 0, -1 when
-// the split is outside 1 .. min(kDecodeMaxSplit, K / g), or the CUDA error.
+// Launches the decode kernel with the plan's cluster size: ceil(N / 64) column
+// tiles, which for GateUpPairs (N = 2F) are F / 32 tiles of 32 pairs. Returns
+// 0, -1 when the split is outside 1 .. min(kDecodeMaxSplit, K / g), or the
+// CUDA error.
 template <int BITS, class Z, bool FOLD>
 int launch_decode(const void* x, int M, int K, const void* qw, const void* sc, int N, int g,
                   Z zero, int split, void* out, cudaStream_t stream) {

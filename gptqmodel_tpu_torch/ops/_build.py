@@ -116,7 +116,7 @@ def lib() -> ctypes.CDLL:
         if _lib is None:
             handle = ctypes.CDLL(str(_current() or build()))
             vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            handle.gqt_qmatmul.argtypes = [vp, i, i, vp, vp, i, i, f, i, vp, vp]
+            handle.gqt_qmatmul.argtypes = [vp, i, i, vp, vp, i, i, f, i, i, vp, vp]
             handle.gqt_qmatmul.restype = i
             handle.gqt_qmatmul_asym.argtypes = [vp, i, i, vp, vp, vp, i, i, i, i, vp, vp]
             handle.gqt_qmatmul_asym.restype = i
@@ -130,7 +130,7 @@ def lib() -> ctypes.CDLL:
             handle.gqt_qmatmul_planes.restype = i
             handle.gqt_qmatmul_planes_asym.argtypes = [vp, i, i, vp, vp, vp, i, i, i, i, vp, vp]
             handle.gqt_qmatmul_planes_asym.restype = i
-            handle.gqt_qmlp.argtypes = [vp, i, i, i, vp, vp, f, vp, vp, f, i, i, vp, vp, vp]
+            handle.gqt_qmlp.argtypes = [vp, i, i, i, vp, vp, f, vp, vp, f] + [i] * 4 + [vp] * 3
             handle.gqt_qmlp.restype = i
             handle.gqt_gptq_whole_solve.argtypes = [vp] * 4 + [i] * 4 + [f, i] + [vp] * 6
             handle.gqt_gptq_whole_solve.restype = i

@@ -2,10 +2,11 @@
 
 K1, K3 and K7 (``csrc/qmatmul.cu``, arithmetic in ``csrc/qmm_common.cuh``)
 read the GPTQ interchange layout directly and take contiguous groups of a
-multiple of 128, 2, 4 or 8 bits, bf16 activations and fp16 scales. K3 and
-K7 run their own decode kernel at M <= 16 (``csrc/qmm_decode.cuh``: a
-shared-memory ring, K split across a thread-block cluster); its launch plan,
-``decode_plan``, is computed here and handed to the C entry.
+multiple of 128, 2, 4 or 8 bits, bf16 activations and fp16 scales. At
+M <= 16 they run the decode kernel (``csrc/qmm_decode.cuh``: a
+shared-memory ring, K split across a thread-block cluster), as do both
+passes of K2 (``ops/qmlp.py``); its launch plan, ``decode_plan``, is
+computed here and handed to the C entry.
 
 - K1 (``qmatmul``) replaces the TPU kernel ``_qmm_rt_sym_kernel``
   (``gptqmodel_tpu/ops/pallas_qmatmul.py:198``, reached through ``qmatmul``
@@ -68,11 +69,11 @@ from gptqmodel_tpu_torch.ops.pack import unpack_qweight, unpack_qzeros
 KERNEL_BITS = (2, 4, 8)
 PLANE_BITS = (3, 5, 6, 7)  # K4 and K5
 
-# K3's and K7's decode kernel (csrc/qmm_decode.cuh) at M <= DECODE_MAX_M: a
-# block owns DECODE_COLS columns and a whole-group share of K; the blocks of
-# one column tile form a cluster of at most DECODE_MAX_SPLIT (the header's
-# kDecodeMaxM, kDecodeCols and kDecodeMaxSplit). The kernel sizes its own
-# shared memory; the plan gives it only the cluster size.
+# The decode kernel of K1, K3, K7 and K2 (csrc/qmm_decode.cuh) at M <=
+# DECODE_MAX_M: a block owns DECODE_COLS columns and a whole-group share of
+# K; the blocks of one column tile form a cluster of at most DECODE_MAX_SPLIT
+# (the header's kDecodeMaxM, kDecodeCols and kDecodeMaxSplit). The kernel
+# sizes its own shared memory; the plan gives it only the cluster size.
 DECODE_MAX_M = 16
 DECODE_COLS = 64
 DECODE_MAX_SPLIT = 8
@@ -125,8 +126,10 @@ def _sm_count(index: int) -> int:
 
 
 def _decode_split(x, qweight, scales, *, group_size, name) -> int:
-    """The decode plan's split for K3's or K7's C entry, or 0 above
-    ``DECODE_MAX_M`` rows, where K1's tiles run."""
+    """The decode plan's split for the C entry of K1, K3, K7 or one pass of
+    K2 (``x [M, K] @ qweight [., N]``), or 0 above ``DECODE_MAX_M`` rows,
+    where K1's tiles run. A weight or scale pointer that the decode kernel
+    cannot copy in 16-byte pieces raises."""
     M, K = x.shape
     if M > DECODE_MAX_M:
         return 0
@@ -228,9 +231,11 @@ def qmatmul(x, qweight, scales, *, bits, group_size, zero_const):
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     if M == 0:
         return out
-    rc = _build.lib().gqt_qmatmul(
+    lib = _build.lib()
+    split = _decode_split(x, qweight, scales, group_size=g, name="K1")
+    rc = lib.gqt_qmatmul(
         x.data_ptr(), M, K, qweight.data_ptr(), scales.data_ptr(), N, g,
-        float(zero_const), bits, out.data_ptr(),
+        float(zero_const), bits, split, out.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(rc, "qmatmul")

@@ -6,6 +6,10 @@ fused ``gate_up`` module (``[D/pf, 2F]``, gate columns first, as
 ``optimize.fuse_projections`` concatenates them) and ``down``, both
 symmetric with a uniform zero point, at decode sizes (M <= 64). Like the TPU
 kernel it keeps g and u in float32 and rounds ``inner`` to bf16 before down.
+At M <= 16 both passes run the decode kernel (``csrc/qmm_decode.cuh``), each
+with the split of its own launch plan: ``decode_plan(M, D, 2F, g)`` for
+gate/up, whose tiles pair 32 gate columns with their up columns, and
+``decode_plan(M, F, D, g)`` for down.
 
 ``qmlp`` launches the kernel for a CUDA tensor and uses ``qmlp_plain`` only
 for a tensor on the CPU.
@@ -17,7 +21,7 @@ import torch
 import torch.nn.functional as F_
 
 from gptqmodel_tpu_torch.ops import _build
-from gptqmodel_tpu_torch.ops.qmatmul import _check_operands, grouped_dot_f32
+from gptqmodel_tpu_torch.ops.qmatmul import _check_operands, _decode_split, grouped_dot_f32
 
 MAX_M = 64
 
@@ -58,9 +62,12 @@ def qmlp(x, qw_gu, s_gu, qw_d, s_d, *, bits, group_size, zc_gu, zc_d):
     if qw_d.shape[1] != D:
         raise ValueError(f"down has {qw_d.shape[1]} outputs, x has {D} columns")
     out = torch.empty((M, D), dtype=torch.bfloat16, device=x.device)
-    rc = _build.lib().gqt_qmlp(
+    lib = _build.lib()
+    split_gu = _decode_split(x, qw_gu, s_gu, group_size=group_size, name="K2")
+    split_d = _decode_split(inner, qw_d, s_d, group_size=group_size, name="K2")
+    rc = lib.gqt_qmlp(
         x.data_ptr(), M, D, F, qw_gu.data_ptr(), s_gu.data_ptr(), float(zc_gu),
-        qw_d.data_ptr(), s_d.data_ptr(), float(zc_d), group_size, bits,
+        qw_d.data_ptr(), s_d.data_ptr(), float(zc_d), group_size, bits, split_gu, split_d,
         inner.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream,
     )

@@ -333,7 +333,7 @@ def test_qmatmul_fused_refuses_what_it_does_not_take(cuda_device):
         qmatmul_fused(x, p.qweight, p.scales.cpu(), **kw)
 
 
-# ---------------------------------------------- K3 and K7 at decode (M <= 16)
+# ------------------------------------------- K1, K3 and K7 at decode (M <= 16)
 
 # (K, N, g): 7 groups over a ragged last column tile (N = 200, or 208 for
 # 2-bit K3, whose zeros rows need N % 16 == 0), one group, and Llama-3-8B's
@@ -346,7 +346,7 @@ DECODE_MS = [1, 2, 7, 8, 9, 16]
 @functools.lru_cache(maxsize=None)
 def _decode_module(kernel, bits, shape):
     K, N, g = DECODE_SHAPES[shape]
-    sym = kernel == "qmatmul_fused"
+    sym = kernel != "qmatmul_asym"
     N += 8 if N * bits % 32 else 0
     rng = np.random.default_rng([bits, K, N, int(sym)])
     return post_init_module(random_quant_linear(rng, K, N, bits, g, device="cuda", sym=sym))
@@ -359,17 +359,21 @@ def _decode_fns(kernel, p):
                 lambda x: qmatmul_asym_plain(x, *args, **kw))
     args = (p.qweight, p.scales)
     kw = dict(bits=p.bits, group_size=p.group_size, zero_const=p.zero_const)
-    return (lambda x: qmatmul_fused(x, *args, **kw),
-            lambda x: qmatmul_fused_plain(x, *args, **kw))
+    run, plain = ((qmatmul_fused, qmatmul_fused_plain) if kernel == "qmatmul_fused"
+                  else (qmatmul, qmatmul_plain))
+    return lambda x: run(x, *args, **kw), lambda x: plain(x, *args, **kw)
+
+
+DECODE_KERNELS = ["qmatmul_asym", "qmatmul_fused", "qmatmul"]
 
 
 @pytest.mark.parametrize("shape", list(DECODE_SHAPES))
 @pytest.mark.parametrize("M", DECODE_MS)
 @pytest.mark.parametrize("bits", [2, 4, 8])
-@pytest.mark.parametrize("kernel", ["qmatmul_asym", "qmatmul_fused"])
+@pytest.mark.parametrize("kernel", DECODE_KERNELS)
 def test_decode_kernel_matches_plain(cuda_device, kernel, bits, M, shape):
-    """K3 and K7 at M <= 16 run the decode kernel (cluster split along K,
-    shared-memory ring): exact products, f32 sums in another order, one
+    """K1, K3 and K7 at M <= 16 run the decode kernel (cluster split along
+    K, shared-memory ring): exact products, f32 sums in another order, one
     rounding to bf16: 1e-3 relative, and the same bits on every run."""
     p = _decode_module(kernel, bits, shape)
     x = _x(np.random.default_rng([M, bits]), M, p.in_features, cuda_device)
@@ -386,7 +390,7 @@ def test_decode_kernel_matches_plain(cuda_device, kernel, bits, M, shape):
 
 @pytest.mark.parametrize("M", [1, 9, 16])
 @pytest.mark.parametrize("bits", [2, 4, 8])
-@pytest.mark.parametrize("kernel", ["qmatmul_asym", "qmatmul_fused"])
+@pytest.mark.parametrize("kernel", DECODE_KERNELS)
 def test_decode_kernel_exact_inputs_give_equal_outputs(cuda_device, kernel, bits, M):
     """Integer activations and power-of-two scales over 7 groups and a
     ragged column tile: every product and sum is exact, so the decode
@@ -399,26 +403,43 @@ def test_decode_kernel_exact_inputs_give_equal_outputs(cuda_device, kernel, bits
     assert torch.equal(run(x), plain(x))
 
 
+def _unaligned(t):
+    """A copy of ``t`` that starts 4 bytes past a 16-byte boundary."""
+    shifted = torch.empty(t.numel() + 4 // t.element_size(), dtype=t.dtype, device=t.device)
+    out = shifted[4 // t.element_size():].view_as(t)
+    out.copy_(t)
+    return out
+
+
 def test_decode_kernel_refuses_a_split_or_pointers_it_does_not_take(cuda_device, monkeypatch):
-    """The C entry refuses a cluster split outside 1 .. min(8, K / g); an
-    unaligned weight or scale pointer raises before the launch."""
+    """K3's, K1's and K2's C entries refuse a cluster split outside
+    1 .. min(8, K / g) (K2: of either pass); an unaligned weight or scale
+    pointer raises before the launch."""
     from gptqmodel_tpu_torch.ops import qmatmul as qmatmul_mod
 
-    p = _decode_module("qmatmul_asym", 4, "seven_groups_ragged")
-    x = _x(np.random.default_rng(43), 8, p.in_features, cuda_device)
-    run, _ = _decode_fns("qmatmul_asym", p)
+    x = _x(np.random.default_rng(43), 8, 896, cuda_device)
+    gu, down = _mlp(np.random.default_rng(44), 896, 384, 4, cuda_device)  # 7 and 3 groups
+    mlp = lambda x, gu=gu: qmlp(x, gu.qweight, gu.scales, down.qweight, down.scales, bits=4,
+                                group_size=128, zc_gu=gu.zero_const, zc_d=down.zero_const)
+    runs = [_decode_fns(kernel, _decode_module(kernel, 4, "seven_groups_ragged"))[0]
+            for kernel in ("qmatmul_asym", "qmatmul")] + [mlp]
     plan = qmatmul_mod.decode_plan
-    for split in (0, 8, 9):  # 7 groups
+    for split in (0, 4, 8, 9):  # 7 groups (K2's down: 3, so 4 too)
         monkeypatch.setattr(qmatmul_mod, "decode_plan",
                             lambda *a, s=split: dataclasses.replace(plan(*a), split=s))
-        with pytest.raises(ValueError, match="unsupported"):
-            run(x)
+        for run in runs if split != 4 else runs[2:]:
+            with pytest.raises(ValueError, match="unsupported"):
+                run(x)
     monkeypatch.undo()
-    shifted = torch.empty(p.scales.numel() + 2, dtype=p.scales.dtype, device=cuda_device)
-    scales = shifted[2:].view_as(p.scales)
-    scales.copy_(p.scales)
+    p = _decode_module("qmatmul_asym", 4, "seven_groups_ragged")
     with pytest.raises(ValueError, match="aligned"):
-        qmatmul_asym(x, p.qweight, scales, p.qzeros, bits=4, group_size=128)
+        qmatmul_asym(x, p.qweight, _unaligned(p.scales), p.qzeros, bits=4, group_size=128)
+    p = _decode_module("qmatmul", 4, "seven_groups_ragged")
+    for qweight, scales in ((_unaligned(p.qweight), p.scales), (p.qweight, _unaligned(p.scales))):
+        with pytest.raises(ValueError, match="aligned"):
+            qmatmul(x, qweight, scales, bits=4, group_size=128, zero_const=p.zero_const)
+    with pytest.raises(ValueError, match="aligned"):
+        mlp(x, dataclasses.replace(gu, scales=_unaligned(gu.scales)))
 
 
 def test_group32_facade_runs_k6(cuda_device, tmp_path, monkeypatch):
@@ -519,15 +540,28 @@ def _mlp(rng, D, F, bits, dev):
     return _concat_quant([gate, up]), down
 
 
+# K2 on a small MLP, Llama-3-8B's, and a narrow one whose 12 gate/up tiles
+# leave most of the card idle: M <= 16 on the decode kernel (1..8 one n-tile
+# of tokens, 9 and 16 two), 40 and 64 on the register tiles
+QMLP_SHAPES = {"small": (512, 1024), "llama3_8b": (4096, 14336), "narrow": (1024, 384)}
+
+
+@functools.lru_cache(maxsize=None)
+def _qmlp_modules(bits, shape):
+    D, F = QMLP_SHAPES[shape]
+    return _mlp(np.random.default_rng([bits, D, F]), D, F, bits, torch.device("cuda"))
+
+
+@pytest.mark.parametrize("shape", list(QMLP_SHAPES))
 @pytest.mark.parametrize("bits", [2, 4, 8])
-@pytest.mark.parametrize("M", [1, 8, 40, 64])
-def test_qmlp_kernel_matches_plain(cuda_device, bits, M):
+@pytest.mark.parametrize("M", [1, 8, 9, 16, 40, 64])
+def test_qmlp_kernel_matches_plain(cuda_device, bits, M, shape):
     """g and u in f32, inner rounded to bf16 in both; f32 summation order can
-    flip a rounding of inner: 2e-3 relative in norm."""
-    rng = np.random.default_rng(bits * 100 + M)
-    D, F = 512, 1024
-    gu, down = _mlp(rng, D, F, bits, cuda_device)
-    x = _x(rng, M, D, cuda_device)
+    flip a rounding of inner: 2e-3 relative in norm, one launch, and the same
+    bits on two more runs."""
+    D, F = QMLP_SHAPES[shape]
+    gu, down = _qmlp_modules(bits, shape)
+    x = _x(np.random.default_rng(bits * 100 + M), M, D, cuda_device)
     args = (x, gu.qweight, gu.scales, down.qweight, down.scales)
     kw = dict(bits=bits, group_size=128, zc_gu=gu.zero_const, zc_d=down.zero_const)
     before = _build.LAUNCHES["qmlp"]

@@ -1,9 +1,10 @@
-"""The launch plan of K3's and K7's decode kernel (``ops/qmatmul.py``,
-``decode_plan``), which the wrapper hands to the C entry: invariants over
-shapes inside the kernels' contract, and the split it gives each of
-Llama-3-8B's projections on an H100. The kernel sizes its own shared
-memory; ``csrc/qmm_decode.cuh`` asserts at compile time that it fits a
-block and that two blocks an SM keep 24 KB of weights in flight."""
+"""The launch plan of the decode kernel of K1, K3, K7 and K2
+(``ops/qmatmul.py``, ``decode_plan``), which the wrappers hand to the C
+entries: invariants over shapes inside the kernels' contract, and the split
+it gives each of Llama-3-8B's and Qwen3-30B-A3B's projections on an H100.
+The kernel sizes its own shared memory; ``csrc/qmm_decode.cuh`` asserts at
+compile time that it fits a block and that two blocks an SM keep 24 KB of
+weights in flight."""
 
 import pytest
 from hypothesis import given, settings
@@ -23,6 +24,11 @@ from gptqmodel_tpu_torch.ops.qmatmul import (
 # gate/up fused
 LLAMA3_8B = {"qkv": (4096, 6144), "o": (4096, 4096), "gate_up": (4096, 28672),
              "down": (14336, 4096)}
+# beside them, K1's qkv of Qwen3-30B-A3B (hidden 2048, 32 + 2 x 4 heads of
+# 128) and K2's two passes at Llama-3-8B: gate/up pairs F / 32 tiles of 32
+# gate and 32 up columns, as many as 2F / 64, then down on inner [M, F]
+FILLING = {**LLAMA3_8B, "qwen3_30b_a3b_qkv": (2048, 5120), "k2_gate_up": (4096, 2 * 14336),
+           "k2_down": (14336, 4096)}
 
 
 @st.composite
@@ -71,12 +77,22 @@ def test_plan_fits_a_cluster_and_shared_memory(shape):
 
 
 @pytest.mark.parametrize("M", [1, 8, 16])
-@pytest.mark.parametrize("proj", list(LLAMA3_8B))
+@pytest.mark.parametrize("proj", list(FILLING))
 def test_llama3_projections_fill_the_card(proj, M):
     """Each projection launches at least two blocks per SM of an H100, at
     which the header asserts that the rings keep at least 24 KB of weights
     in flight on every SM, at every width."""
-    K, N = LLAMA3_8B[proj]
+    K, N = FILLING[proj]
     plan = decode_plan(M, K, N, 128)
     assert plan.blocks >= 2 * H100_SMS
     assert plan.tiles * DECODE_COLS == N and plan.groups == K // 128
+
+
+@pytest.mark.parametrize("M", [1, 8, 16])
+def test_qwen3_moe_o_projection_takes_the_largest_cluster(M):
+    """Qwen3-30B-A3B's o projection (4096 x 2048) has 32 column tiles: even
+    the plan's largest cluster gives 224 blocks, under two per SM, so the
+    plan takes that cluster at every M."""
+    plan = decode_plan(M, 4096, 2048, 128)
+    assert (plan.tiles, plan.split, plan.blocks) == (32, DECODE_PLAN_SPLIT, 224)
+    assert plan.blocks < 2 * H100_SMS

@@ -121,3 +121,37 @@ def test_tensor_off_the_cpu_goes_to_the_kernel(monkeypatch):
              zc_gu=gu.zero_const, zc_d=down.zero_const)
     with pytest.raises(RuntimeError, match="kernel library"):
         qmlp_forward(gu, down, x[None], "silu")
+
+
+@pytest.mark.parametrize("M", [1, 8, 16, 40])
+def test_tensor_off_the_cpu_hands_the_kernel_both_plan_splits(monkeypatch, M):
+    """Off the CPU (here on the meta device, with a stand-in library), K2's
+    C entry gets the split of ``decode_plan(M, D, 2F, g)`` for gate/up and of
+    ``decode_plan(M, F, D, g)`` for down at M <= 16, and 0 for both above."""
+    from types import SimpleNamespace
+
+    from gptqmodel_tpu_torch.ops import qmatmul as qmatmul_mod
+
+    calls = []
+
+    def gqt_qmlp(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(_build, "lib", lambda: SimpleNamespace(gqt_qmlp=gqt_qmlp))
+    monkeypatch.setattr(qmatmul_mod, "_sm_count", lambda index: qmatmul_mod.H100_SMS)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: SimpleNamespace(cuda_stream=0))
+    monkeypatch.setitem(_build.LAUNCHES, "qmlp", 0)
+    rng = np.random.default_rng(5)
+    D, F = 256, 512
+    gu = _port(_concat_quant([_module(rng, F, D, True), _module(rng, F, D, True)])).to("meta")
+    down = _port(_module(rng, D, F, True)).to("meta")
+    x = torch.empty((M, D), dtype=torch.bfloat16, device="meta")
+    y = qmlp(x, gu.qweight, gu.scales, down.qweight, down.scales, bits=4, group_size=128,
+             zc_gu=gu.zero_const, zc_d=down.zero_const)
+    assert y.shape == (M, D) and _build.LAUNCHES["qmlp"] == 1 and len(calls) == 1
+    split_gu, split_d = calls[0][12:14]
+    want = ((qmatmul_mod.decode_plan(M, D, 2 * F, 128).split,
+             qmatmul_mod.decode_plan(M, F, D, 128).split) if M <= 16 else (0, 0))
+    assert (split_gu, split_d) == want
+    assert min(want) >= (1 if M <= 16 else 0)
