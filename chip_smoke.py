@@ -9,8 +9,9 @@ Phases, each printing JSON lines on stdout:
    sm_90a, one process per source, and the phase prints the commands and
    what ptxas says of each kernel (registers, static shared memory, spills),
    the dynamic shared memory of the decode kernel (``qmm_decode.cuh``: K1,
-   K3, K7 and both passes of K2 at M <= 16) by bits and M, and its
-   instantiations; it fails if K1's or K2's old 16-row tile is still built.
+   K3, K6, K7 and both passes of K2 at M <= 16) by bits and M, and its
+   instantiations; it fails if K1's, K2's or K6's old 16-row tile is still
+   built, or if K6's decode instantiations are missing.
 2. ``kernels``: each kernel against its plain PyTorch version on the card,
    at the shapes of Llama-3-8B's main paths: K1 (``qmatmul``) at the qkv, o,
    gate_up and down projections for M = 1, 8, 16 (its decode kernel) and
@@ -39,11 +40,14 @@ Phases, each printing JSON lines on stdout:
    128, equal to each other, and K13 (``qmoe_matmul``) on gate|up and down
    at N = 8 and 128; their bound counts the distinct routed experts' words
    and scales, once each, and the routed rows' operations. Then K6
-   (``qmm``, groups of 32 and 64) at the same four projections for M = 1, 8
-   and 256, 4-bit, symmetric and with random zeros per group and column, and
-   at qkv, M = 8 at 2 and 8 bits, twice each for equal bits, with
+   (``qmm``, groups of 32 and 64, and 16 with random zeros) at the same four
+   projections for M = 1, 8, 16 (the decode kernel's ``DequantFirst``
+   instantiation, asserted from the profiler's kernel names) and 256, 4-bit,
+   symmetric and with random zeros per group and column, and at qkv, M = 8
+   at 2 and 8 bits, twice each for equal bits, with
    ``torch._weight_int4pack_mm`` at the same group size as the yardstick
-   (its bound counts the zeros only where they are read), and the reference
+   where it takes that group (32 and 64; its bound counts the zeros only
+   where they are read), and the reference
    route (dequantize, then ``torch.matmul``) at M = 1024, timed for the
    record; K7 (``qmatmul_fused``) at K3's projections and sizes, with K1
    and ``torch._weight_int4pack_mm`` timed beside it; and K4
@@ -152,11 +156,11 @@ Phases, each printing JSON lines on stdout:
 
 Then ``{"phase": "profiler"}``: how many torch.profiler sessions lost
 kernel records and were run again, how many were read from the records
-they kept (``device_ms``), and how many timed loops of K1, K2, K3 and K7
-read under their bound and were timed again (``timed``; a third such
-reading fails the run). K1's and K2's cases also name the kernels the
-profiler saw; at M <= 16 they must all be ``qmm_decode_kernel``. Then the
-card's name and power limit, the ``{"kernels": [...]}`` line and, last,
+they kept (``device_ms``), and how many timed loops of K1, K2, K3, K6 and
+K7 read under their bound and were timed again (``timed``; a third such
+reading fails the run). K1's, K2's and K6's cases also name the kernels the
+profiler saw; at M <= 16 they must all be ``qmm_decode_kernel`` (K6: its
+``DequantFirst`` instantiation). Then the card's name and power limit, the ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Each record of the kernels line
 names its units: ``launches`` counts a whole run of the main path
 (``launches_per``: K1 and K2 the generate run, K3 the asym-act-slice
@@ -211,11 +215,12 @@ K2_MS = (1, 8, 16, 64)
 K1_TOL, K2_TOL = 1e-3, 2e-3
 # K3 as K1: z*s is exact in f32 too
 K3_TOL = K1_TOL
-# K6 at every projection for M = 1, 8 and 256 (the most rows its route
-# gives it), 4-bit at groups of 32 and 64, symmetric and not; 2- and 8-bit
-# at qkv, M = 8, group 32.
-K6_MS = (1, 8, 256)
-K6_GROUPS = ((32, True), (32, False), (64, True), (64, False))
+# K6 at every projection for M = 1, 8, 16 (its decode kernel) and 256 (the
+# most rows its route gives it), 4-bit at groups of 32 and 64, symmetric and
+# not, and 16 with zeros per group; 2- and 8-bit at qkv, M = 8, group 32.
+K6_MS = (1, 8, 16, 256)
+K6_GROUPS = ((32, True), (32, False), (64, True), (64, False), (16, False))
+INT4PACK_GROUPS = (32, 64, 128, 256)  # the group sizes torch._weight_int4pack_mm takes
 K6_EXTRA_BITS = {"qkv": (2, 8)}
 K6_REF_M = 1024  # the prefill's rows, on the reference route: timed for the record
 # K6 and K7 as K1: the same weights in both (K6 bf16(bf16(c - z) * bf16(s)),
@@ -1479,7 +1484,9 @@ def k6_kernel_cases(dev, rng, shapes: dict) -> list:
     8-bit at the sizes ``K6_EXTRA_BITS`` names (group 32, symmetric); two
     runs each for equal bits, the weights rotated through copies past the
     L2, and ``torch._weight_int4pack_mm`` at the same group size, the zeros
-    folded into its scales-and-zeros, as the yardstick at 4 bits. Then, per
+    folded into its scales-and-zeros, as the yardstick at 4 bits where it
+    takes that group. At M <= 16 every call must run the decode kernel's
+    ``DequantFirst`` instantiation (the profiler's kernel names). Then, per
     projection at group 32, the route that the prefill's ``K6_REF_M`` rows
     take (dequantize to bf16, then the product), timed for the record."""
     import torch
@@ -1487,7 +1494,7 @@ def k6_kernel_cases(dev, rng, shapes: dict) -> list:
     from gptqmodel_tpu_torch.ops import _build
     from gptqmodel_tpu_torch.ops.pack import unpack_qzeros
     from gptqmodel_tpu_torch.ops.qlinear import qlinear_forward_torch
-    from gptqmodel_tpu_torch.ops.qmatmul import qmm, qmm_plain
+    from gptqmodel_tpu_torch.ops.qmatmul import DECODE_MAX_M, qmm, qmm_plain
     from gptqmodel_tpu_torch.ops.registry import kernel_route, post_init_module
     from gptqmodel_tpu_torch.utils.testing import random_quant_linear
 
@@ -1508,7 +1515,7 @@ def k6_kernel_cases(dev, rng, shapes: dict) -> list:
                              for _ in range(copies_for(wbytes) - 1)]
             zeros = lambda m: m.zero_const if sym else unpack_qzeros(m.qzeros, 4).float()
             lib_w = ([int4pack(m.qweight, m.scales, zeros(m)) for m in mods]
-                     if has_int4pack and bits == 4 else None)
+                     if has_int4pack and bits == 4 and g in INT4PACK_GROUPS else None)
             kw = dict(bits=bits, group_size=g, zero_const=base.zero_const)
             ops = lambda i: (x, mods[i].qweight, mods[i].scales, mods[i].qzeros)
             for M in (K6_MS if bits == 4 else (B,)):
@@ -1521,7 +1528,8 @@ def k6_kernel_cases(dev, rng, shapes: dict) -> list:
                 require(_build.LAUNCHES["qmm"] == before + 2, "K6 did not launch")
                 identical = torch.equal(y, y2)
                 rel, mx = errors(y, ref)
-                k = timed(lambda i: qmm(*ops(i), **kw), len(mods))
+                b_ms, b_by = bound(x.nbytes + wbytes + y.nbytes, 2.0 * M * N * K)
+                k = timed(lambda i: qmm(*ops(i), **kw), len(mods), floor_ms=b_ms)
                 pl_ = timed(lambda i: qmm_plain(*ops(i), **kw), len(mods), budget_ms=100.0)
                 lib, lib_rel = None, None
                 if lib_w is not None:
@@ -1529,14 +1537,16 @@ def k6_kernel_cases(dev, rng, shapes: dict) -> list:
                                                                     lib_w[i][1]), len(mods))
                     lib_rel = errors(torch._weight_int4pack_mm(x, lib_w[0][0], g, lib_w[0][1]),
                                      ref)[0]
-                b_ms, b_by = bound(x.nbytes + wbytes + y.nbytes, 2.0 * M * N * K)
                 case = {"kernel": "qmm", "proj": proj, "bits": bits, "group_size": g,
                         "sym": sym, "M": M, "K": K, "N": N, "rel_err": rel, "max_abs_err": mx,
                         "identical_runs": identical, "ms": k["ms"], "wall_ms": k["wall_ms"],
+                        "kernel_names": k["kernels"],
                         "plain_ms": pl_["ms"], "bound_ms": b_ms, "bound_by": b_by,
                         "library_ms": lib["ms"] if lib else None,
-                        "library": (library if bits == 4 else
-                                    "null: torch._weight_int4pack_mm takes 4-bit weights"),
+                        "library": (library if bits == 4 and g in INT4PACK_GROUPS else
+                                    "null: torch._weight_int4pack_mm takes 4-bit weights"
+                                    if bits != 4 else
+                                    "null: torch._weight_int4pack_mm takes groups of 32 to 256"),
                         "library_rel_err": lib_rel, "plain_wall_ms": pl_["wall_ms"],
                         "library_wall_ms": lib["wall_ms"] if lib else None,
                         "weight_copies": len(mods)}
@@ -1545,6 +1555,9 @@ def k6_kernel_cases(dev, rng, shapes: dict) -> list:
                 require(rel <= K6_TOL, f"K6 {proj} {bits}-bit g={g} sym={sym} M={M}: "
                         f"rel {rel} > {K6_TOL}")
                 require(identical, f"K6 {proj} {bits}-bit g={g} sym={sym} M={M}: two runs differ")
+                require(M > DECODE_MAX_M or (on_decode_kernel(k["kernels"]) and
+                                             all("DequantFirst" in n for n in k["kernels"])),
+                        f"K6 {proj} {bits}-bit g={g} sym={sym} M={M} ran {k['kernels']}")
             if (bits, g, sym) == (4, 32, True):
                 x = torch.from_numpy(rng.standard_normal((K6_REF_M, K), dtype=np.float32)).to(
                     dev).to(torch.bfloat16)
@@ -1885,15 +1898,25 @@ def main() -> int:
             for z in ("UniformZero", "GateUpPairs"):
                 require(f"qmm_decode_kernel<{bits},{nt},{z},0>" in decode_kernels,
                         f"no {bits}-bit {z} decode kernel for {8 * nt} rows in the build")
-    old_tile = r"qmatmul_kernel<\d,1,1,UniformZero(,0)?>|qmlp_gate_up_kernel<\d,1>"
+    # K6 at M <= 16 (its groups dividing 128): DequantFirst over either zeros
+    for bits in KERNEL_BITS:
+        for nt in (1, 2):
+            for z in ("UniformZero", f"GroupZeros,{bits}"):
+                require(f"qmm_decode_kernel<{bits},{nt},DequantFirst,{z},0>" in decode_kernels,
+                        f"no {bits}-bit K6 decode kernel on {z} for {8 * nt} rows in the build")
+    old_tile = (r"qmatmul_kernel<\d,1,1,UniformZero(,0)?>|qmlp_gate_up_kernel<\d,1>"
+                r"|qmm_kernel<\d,1,1,.*>")
     old_tiles = [k for k in kernels_ptxas if re.fullmatch(old_tile, k)]
-    require(not old_tiles, f"K1's or K2's 16-row tile is still built: {old_tiles}")
+    require(not old_tiles, f"K1's, K2's or K6's 16-row tile is still built: {old_tiles}")
     build_rec = {"phase": "build", "seconds": info["seconds"], "compile": info["compile"],
                  "link": info["link"], "ptxas": kernels_ptxas,
                  # of every decode kernel instantiation, which sizes its own
-                 "decode_dynamic_smem": {f"{bits}-bit": {M: smem_of(bits, M)
+                 "decode_dynamic_smem": {f"{bits}-bit": {M: smem_of(bits, M, 0)
                                                          for M in (1, 8, 16)}
                                          for bits in KERNEL_BITS},
+                 "k6_decode_dynamic_smem_g32": {f"{bits}-bit": {M: smem_of(bits, M, 32)
+                                                                for M in (1, 8, 16)}
+                                                for bits in KERNEL_BITS},
                  "decode_kernels": decode_kernels,
                  "torch": torch.__version__, "cuda": torch.version.cuda}
     emit(build_rec)
@@ -2232,7 +2255,8 @@ def main() -> int:
          "max_abs_err": max(c["max_abs_err"] for c in cases if c["kernel"] == "qmatmul_fused"),
          **per_step("qmatmul_fused", [("qkv", L), ("o", L)])},
         {"name": "qmm (K6)", "route": "cuda",
-         "source": "gptqmodel_tpu_torch/csrc/qmm.cu",
+         "source": ("gptqmodel_tpu_torch/csrc/qmm_decode.cuh (M <= 16), "
+                    "gptqmodel_tpu_torch/csrc/qmm.cu"),
          "replaces": "gptqmodel_tpu/ops/pallas_qmatmul.py:55",
          "launches": g32["g32_slice"]["generate_counts"]["qmm"],
          "launches_per": "g32-slice generate run", "ms_per": "decode step (group 32, symmetric)",

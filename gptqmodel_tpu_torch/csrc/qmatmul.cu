@@ -195,13 +195,19 @@ extern "C" int gqt_qmatmul_fused(const void* x, int M, int K, const void* qweigh
 }
 
 // The dynamic shared memory of the decode kernel's block at M rows (its
-// ring), or -1 for unsupported bits or M.
-extern "C" int gqt_decode_smem_bytes(int bits, int M) {
+// ring): K1's, K3's, K7's and K2's for g = 0, K6's at group g > 0; or -1 for
+// unsupported bits, M or g.
+extern "C" int gqt_decode_smem_bytes(int bits, int M, int g) {
+  const auto of = [&](auto shape) {
+    using D = decltype(shape);
+    if (g == 0) return D::smem_bytes(M);
+    return g < D::MIN_GROUP || gqt::kChunk % g ? -1 : D::k6_smem_bytes(M, g);
+  };
   if (M < 1 || M > gqt::kDecodeMaxM) return -1;
   switch (bits) {
-    case 2: return gqt::DecodeShape<2>::smem_bytes(M);
-    case 4: return gqt::DecodeShape<4>::smem_bytes(M);
-    case 8: return gqt::DecodeShape<8>::smem_bytes(M);
+    case 2: return of(gqt::DecodeShape<2>{});
+    case 4: return of(gqt::DecodeShape<4>{});
+    case 8: return of(gqt::DecodeShape<8>{});
     default: return -1;
   }
 }

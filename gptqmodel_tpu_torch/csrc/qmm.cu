@@ -27,14 +27,27 @@
 // What bounds it on an H100 (3.35 TB/s, 989 TFLOP/s bf16): at decode the
 // packed weights, the scales (2 bytes per group and column: 1/8 of the
 // 4-bit weight bytes at group 32) and, for per-group zeros, the qzeros words,
-// read once. The design, simple first: mma.sync m16n8k16 with B fragments
-// built in registers (one and, one or, one bf16x2 subtraction and one bf16x2
-// multiplication per pair of 2/4-bit codes); 4 warps a block split K by
-// 4-word steps and add their results in warp order through shared memory
-// (no atomics, the same bits every run); each lane keeps the next four steps'
-// words, scales and zero words in flight while it works on the current ones;
-// the B fragments of a step serve every row tile of the block. No wgmma or
-// TMA: it is not expected to reach the tensor-core bound at M = 256.
+// read once.
+//
+// Decode (M <= 16, a group that divides 128, K % 128 == 0): the decode
+// kernel of K1, K3 and K7 (qmm_decode.cuh) with Z = DequantFirst<zeros>:
+// the tile's weights, every scale and qzeros row of a 128-row chunk and x
+// stream through its shared-memory ring, K splits across a cluster in whole
+// chunks, the weights are the mma's A operand, and each lane dequantizes
+// its word row with its group's scales and zeros from the stage before the
+// mma (dq_pair, qmm_common.cuh). The launch plan (ops/qmatmul.py) passes the
+// cluster split, or 0 for a shape outside that contract.
+//
+// Otherwise, and above 16 rows, the register tile below (at M <= 16 its
+// 64-row tile), simple first:
+// mma.sync m16n8k16 with B fragments built in registers (one and, one or,
+// one bf16x2 subtraction and one bf16x2 multiplication per pair of 2/4-bit
+// codes: dq_pair); 4 warps a block split K by 4-word steps and add their
+// results in warp order through shared memory (no atomics, the same bits
+// every run); each lane keeps the next four steps' words, scales and zero
+// words in flight while it works on the current ones; the B fragments of a
+// step serve every row tile of the block. No wgmma or TMA: it is not
+// expected to reach the tensor-core bound at M = 256.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -42,27 +55,11 @@
 #include <stdint.h>
 
 #include "qmm_common.cuh"
+#include "qmm_decode.cuh"
 
 namespace gqt {
 
 constexpr int kSteps = 4;  // 4-word steps per lane whose loads are in flight together
-
-// bf16 pair (bf16((c_a - z) * s), bf16((c_{a+PF/2} - z) * s)) of a packed word;
-// zoff is bf16(128 + z) twice for 2 and 4 bits (the codes come out of the
-// magic OR as bf16(128 + c)), bf16(z) twice for 8 bits; s is bf16(s) twice.
-template <int BITS>
-__device__ __forceinline__ uint32_t dq_pair(uint32_t w, int a, __nv_bfloat162 zoff,
-                                            __nv_bfloat162 s) {
-  uint32_t c;
-  if constexpr (BITS == 8) {
-    c = code_pair<8>(w, a);
-  } else {
-    constexpr uint32_t kMask = ((1u << BITS) - 1u) * 0x00010001u;
-    c = ((w >> (BITS * a)) & kMask) | 0x43004300u;
-  }
-  const __nv_bfloat162 d = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&c), zoff);
-  return as_u32(__hmul2(d, s));  // d exact; one rounding of d * s
-}
 
 // A block of kWarps warps owns rows m0 .. m0+16*MT-1 and columns
 // blockIdx.y*8*NT .. +8*NT-1; the warps split K by 4-word steps (KI rows).
@@ -173,47 +170,56 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Tiles by M as K1 (launch_by_m in qmm_common.cuh).
+// The decode kernel for a split > 0, else the tiles by M as K1
+// (launch_by_m in qmm_common.cuh). A shape off the decode kernel's contract
+// at M <= 16 runs the Tile<4, 1> kernel (launch_by_m's Tile<1, 1> mapped to
+// it, as K1's kernel_of does), so no 16-row tile of K6 is built.
 template <int BITS, class Z>
-void dispatch_qmm(const void* x, int M, int K, const void* qw, const void* sc, int N, int g,
-                  Z zero, void* out, cudaStream_t stream) {
+int dispatch_qmm(const void* x, int M, int K, const void* qw, const void* sc, int N, int g,
+                 Z zero, int split, void* out, cudaStream_t stream) {
+  if (split > 0)
+    return launch_decode<BITS, DequantFirst<Z>, false>(x, M, K, qw, sc, N, g,
+                                                       DequantFirst<Z>{zero}, split, out, stream);
   const auto kernel_of = [](auto tile) {
     using T = decltype(tile);
-    return qmm_kernel<BITS, T::MT, T::NT, Z>;
+    return qmm_kernel<BITS, T::MT == 1 ? 4 : T::MT, T::NT, Z>;
   };
   launch_by_m(kernel_of, x, M, K, qw, sc, N, g, zero, out, stream);
+  return (int)cudaGetLastError();
 }
 
 template <int BITS>
-void dispatch_zero(const void* x, int M, int K, const void* qw, const void* sc, const void* qz,
-                   int N, int g, float zero_const, void* out, cudaStream_t stream) {
-  if (zero_const >= 0.f) {
-    dispatch_qmm<BITS>(x, M, K, qw, sc, N, g, UniformZero{zero_const}, out, stream);
-  } else {
-    const GroupZeros<BITS> zero{static_cast<const uint32_t*>(qz), N * BITS / 32};
-    dispatch_qmm<BITS>(x, M, K, qw, sc, N, g, zero, out, stream);
-  }
+int dispatch_zero(const void* x, int M, int K, const void* qw, const void* sc, const void* qz,
+                  int N, int g, float zero_const, int split, void* out, cudaStream_t stream) {
+  if (zero_const >= 0.f)
+    return dispatch_qmm<BITS>(x, M, K, qw, sc, N, g, UniformZero{zero_const}, split, out,
+                              stream);
+  const GroupZeros<BITS> zero{static_cast<const uint32_t*>(qz), N * BITS / 32};
+  return dispatch_qmm<BITS>(x, M, K, qw, sc, N, g, zero, split, out, stream);
 }
 
 }  // namespace gqt
 
-// Returns 0, -1 for unsupported bits, or the CUDA error of the launch. The
-// caller checks the contract (ops/qmatmul.py qmm_supported): bf16 x [M, K]
-// (16-byte aligned rows), int32 qweight [K*bits/32, N], fp16 scales [K/g, N],
-// int32 v2 qzeros [K/g, N*bits/32], g % (32/bits) == 0, g % 8 == 0,
-// K % g == 0, K % (128/bits) == 0, N % 128 == 0; zero_const >= 0 is the
-// module's one zero point (qzeros are then not read); and allocates out
-// [M, N] bf16.
+// Returns 0, -1 for unsupported bits or a decode split the decode kernel
+// does not take (qmm_decode.cuh, launch_decode), or the CUDA error of the
+// launch. The caller checks the contract (ops/qmatmul.py qmm_supported):
+// bf16 x [M, K] (16-byte aligned rows), int32 qweight [K*bits/32, N], fp16
+// scales [K/g, N], int32 v2 qzeros [K/g, N*bits/32], g % (32/bits) == 0,
+// g % 8 == 0, K % g == 0, K % (128/bits) == 0, N % 128 == 0 (at a split > 0
+// also 16-byte aligned qweight and scales); zero_const >= 0 is the module's
+// one zero point (qzeros are then not read); split is the decode plan's
+// cluster size, or 0 for the register tile; and allocates out [M, N] bf16.
 extern "C" int gqt_qmm(const void* x, int M, int K, const void* qweight, const void* scales,
                        const void* qzeros, int N, int group_size, float zero_const, int bits,
-                       void* out, void* stream) {
+                       int split, void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const void* z = qzeros;
+  const int g = group_size;
+  const float zc = zero_const;
   switch (bits) {
-    case 2: gqt::dispatch_zero<2>(x, M, K, qweight, scales, z, N, group_size, zero_const, out, s); break;
-    case 4: gqt::dispatch_zero<4>(x, M, K, qweight, scales, z, N, group_size, zero_const, out, s); break;
-    case 8: gqt::dispatch_zero<8>(x, M, K, qweight, scales, z, N, group_size, zero_const, out, s); break;
+    case 2: return gqt::dispatch_zero<2>(x, M, K, qweight, scales, z, N, g, zc, split, out, s);
+    case 4: return gqt::dispatch_zero<4>(x, M, K, qweight, scales, z, N, g, zc, split, out, s);
+    case 8: return gqt::dispatch_zero<8>(x, M, K, qweight, scales, z, N, g, zc, split, out, s);
     default: return -1;
   }
-  return (int)cudaGetLastError();
 }

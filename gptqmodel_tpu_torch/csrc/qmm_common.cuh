@@ -1,4 +1,4 @@
-// Device code shared by the port's dequant-matmul kernels (qmatmul.cu, qmlp.cu).
+// Device code shared by the port's dequant-matmul kernels (qmatmul.cu, qmlp.cu, qmm.cu).
 //
 // The weights are read in the GPTQ interchange layout, with no repack: the
 // int32 word at row r of column n holds the codes of K-rows r*PF .. r*PF+PF-1,
@@ -44,7 +44,8 @@ namespace gqt {
 
 constexpr int kWarps = 4;             // warps per block; they split K by groups
 constexpr int kThreads = 32 * kWarps;
-constexpr int kChunk = 128;           // K-rows per step; group sizes are multiples
+// K-rows per step: K1's groups are multiples of it, K6's decode groups divide it
+constexpr int kChunk = 128;
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -137,6 +138,24 @@ __device__ __forceinline__ uint32_t fold_pair(uint32_t w, int a, float s) {
   const uint32_t c = code_pair<BITS>(w, a);
   const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&c));
   return as_u32(__floats2bfloat162_rn(f.x * s, f.y * s));
+}
+
+// K6's A or B pair (qmm.cu, and qmm_decode.cuh's DequantFirst):
+// (bf16((c_a - z) * s), bf16((c_{a+PF/2} - z) * s)) of a packed word; zoff
+// is bf16(128 + z) twice for 2 and 4 bits (the codes come out of the magic
+// OR as bf16(128 + c)), bf16(z) twice for 8 bits; s is bf16(s) twice.
+template <int BITS>
+__device__ __forceinline__ uint32_t dq_pair(uint32_t w, int a, __nv_bfloat162 zoff,
+                                            __nv_bfloat162 s) {
+  uint32_t c;
+  if constexpr (BITS == 8) {
+    c = code_pair<8>(w, a);
+  } else {
+    constexpr uint32_t kMask = ((1u << BITS) - 1u) * 0x00010001u;
+    c = ((w >> (BITS * a)) & kMask) | 0x43004300u;
+  }
+  const __nv_bfloat162 d = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&c), zoff);
+  return as_u32(__hmul2(d, s));  // d exact; one rounding of d * s
 }
 
 __device__ __forceinline__ float pair_sum(uint32_t v) {
@@ -329,9 +348,9 @@ struct Tile {
 
 // The tile by M, for qmatmul_kernel (K1, K3, K7), qmm_kernel (K6) and the
 // planes kernels (K4, K5): decode (M <= 16) one row tile and 8 columns a
-// block, which K1, K3 and K7 never launch (their decode kernel is
-// qmm_decode.cuh); up to 64 rows four row tiles; beyond, 32 x 32 tiles when
-// N allows. kernel_of(Tile<MT, NT>{}) gives the kernel of that tile; the
+// block, which K1, K3, K6 and K7 never launch (their decode kernel is
+// qmm_decode.cuh; their kernel_of maps this tile to Tile<4, 1>'s kernel); up
+// to 64 rows four row tiles; beyond, 32 x 32 tiles when N allows. kernel_of(Tile<MT, NT>{}) gives the kernel of that tile; the
 // kernels take these operands.
 template <class KernelOf, class Z>
 void launch_by_m(KernelOf kernel_of, const void* x, int M, int K, const void* qw,

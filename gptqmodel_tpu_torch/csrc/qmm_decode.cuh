@@ -1,4 +1,4 @@
-// The decode kernel of K1, K3 and K7, and of both passes of K2 (M <= 16
+// The decode kernel of K1, K3, K6 and K7, and of both passes of K2 (M <= 16
 // rows): y[M, N] = x[M, K] @ dequant(qweight).
 //
 // At decode the packed weights are the whole cost: each is read once and
@@ -12,7 +12,8 @@
 //   column tile form a thread-block cluster along K (at most 8); the launch
 //   plan (ops/qmatmul.py, decode_plan) picks the cluster size so that each
 //   Llama-3-8B projection launches two to four blocks per SM, about what
-//   is resident at once. Rank r takes groups [r*G/S, (r+1)*G/S).
+//   is resident at once. Rank r takes groups [r*G/S, (r+1)*G/S) (K6's
+//   small groups: 128-row chunks, below).
 // - The block's weights, the group's fp16 scale row, K3's qzeros words and
 //   x's slice arrive through a ring of DecodeShape::STAGES stages in shared
 //   memory, one 128-row chunk (inside one group) per stage. Two producer
@@ -64,6 +65,18 @@
 // sums to half 0 through shared memory, and half 0 writes
 // inner = bf16(silu(g) * u), the TPU kernel's rounding, to [M, F]. The down
 // pass is K1's launch on inner.
+//
+// K6 (qmm.cu) takes Z = DequantFirst<UniformZero> or
+// DequantFirst<GroupZeros<BITS>>: groups of g = 8 to 128 rows that divide
+// the 128-row chunk, K a multiple of 128. A stage then holds its chunk's
+// 128/g rows of the tile's fp16 scales and of its v2 qzeros words (up to
+// 2 KB and 1 KB at g = 8), and the cluster splits K in whole chunks: rank r
+// takes chunks [r*C/S, (r+1)*C/S), C = K/128. A lane's word row lies inside
+// one group (g % PF == 0): it reads that group's 4 scales, rounded to bf16,
+// and its 4 zeros from the stage and builds each A pair as
+// bf16(bf16(c - z) * bf16(s)) (dq_pair, K6's rounding), which the mma sums
+// straight into the accumulator. No X1 mma, no correction when a group
+// ends; reduction and store are K1's.
 
 #pragma once
 
@@ -118,12 +131,33 @@ struct DecodeShape {
   __host__ __device__ static constexpr int smem_bytes(int M) {
     return kDecodeBarBytes + STAGES * stage_bytes(M);
   }
-  // A block's ring at the most rows fits what a block may take; and at the
-  // two blocks an SM that the launch plan gives at least, the STAGES - 1
-  // chunks of weights in flight make 24 KB or more an SM.
+  // K6 (DequantFirst): a stage holds the scale row and the qzeros row of
+  // each of its chunk's 128/g groups; the smallest group K6 takes holds
+  // whole words and 8 rows
+  static constexpr int ZROW_BYTES = kDecodeCols * BITS / 8;  // the tile's qzeros of a group
+  static constexpr int MIN_GROUP = PF > 8 ? PF : 8;
+  // At 4 bits one stage fewer than K1's, so that at M = 8 and g = 32 five
+  // blocks reside on an SM where K1's six stages leave four. Other widths
+  // keep K1's depth.
+  static constexpr int K6_STAGES = BITS == 4 ? 5 : STAGES;
+  __host__ __device__ static constexpr int groups_bytes(int g) {
+    return (kChunk / g) * (S_BYTES + ZROW_BYTES);
+  }
+  __host__ __device__ static constexpr int k6_stage_bytes(int M, int g) {
+    return W_BYTES + groups_bytes(g) + M * XROW * 4;
+  }
+  __host__ __device__ static constexpr int k6_smem_bytes(int M, int g) {
+    return kDecodeBarBytes + K6_STAGES * k6_stage_bytes(M, g);
+  }
+  // A block's ring at the most rows (K6's at its smallest group) fits what a
+  // block may take; and at the two blocks an SM that the launch plan gives
+  // at least, the ring's depth less one chunks of weights in flight (K1's
+  // and K6's) make 24 KB or more an SM.
   static constexpr bool fits() {
     return smem_bytes(kDecodeMaxM) <= kDecodeMaxSmem &&
-           2 * (STAGES - 1) * WR * kDecodeCols * 4 >= 24 * 1024;
+           k6_smem_bytes(kDecodeMaxM, MIN_GROUP) <= kDecodeMaxSmem &&
+           2 * (STAGES - 1) * WR * kDecodeCols * 4 >= 24 * 1024 &&
+           2 * (K6_STAGES - 1) * WR * kDecodeCols * 4 >= 24 * 1024;
   }
 };
 static_assert(DecodeShape<2>::fits() && DecodeShape<4>::fits() && DecodeShape<8>::fits(),
@@ -196,6 +230,21 @@ __device__ __forceinline__ void lds_x(const uint32_t* p, bool ok, uint32_t (&v)[
 // columns in gate/up pairs and writes bf16(silu(g) * u) (above).
 struct GateUpPairs : UniformZero {};
 
+// K6: the zero points of Z (UniformZero or GroupZeros<BITS>) under K6's
+// arithmetic, on groups that divide the chunk (above).
+template <class Z>
+struct DequantFirst : Z {};
+
+// Whether Z is K6's, and the zero points it carries.
+template <class Z>
+struct dequant_first : std::false_type {
+  using zeros = Z;
+};
+template <class Z>
+struct dequant_first<DequantFirst<Z>> : std::true_type {
+  using zeros = Z;
+};
+
 // Where tile column c lies past the tile's first column: c itself, or for
 // K2's gate/up tile (GATE_UP, N = 2F) the up columns' offset past F.
 template <bool GATE_UP>
@@ -203,22 +252,26 @@ __device__ __forceinline__ int tile_offset(int c, int N) {
   return GATE_UP && c >= kDecodeCols / 2 ? N / 2 + c - kDecodeCols / 2 : c;
 }
 
-// Z is GroupZeros<BITS> (K3), UniformZero (K1; K7 with FOLD) or GateUpPairs
-// (K2's gate/up pass, out [M, N/2]); NT n-tiles of 8 tokens (M <= 8 * NT).
-// Grid: (column tiles) x split blocks, clusters of split along x; dynamic
-// shared memory DecodeShape<BITS>::smem_bytes(M).
+// Z is GroupZeros<BITS> (K3), UniformZero (K1; K7 with FOLD), GateUpPairs
+// (K2's gate/up pass, out [M, N/2]) or DequantFirst<either zeros> (K6); NT
+// n-tiles of 8 tokens (M <= 8 * NT). Grid: (column tiles) x split blocks,
+// clusters of split along x; dynamic shared memory
+// DecodeShape<BITS>::smem_bytes(M) (K6: k6_smem_bytes(M, g)).
 template <int BITS, int NT, class Z, bool FOLD>
 __global__ void __launch_bounds__(kDecodeThreads)
     qmm_decode_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
                       const uint32_t* __restrict__ qw, const __half* __restrict__ sc, int N,
                       int g, Z zero, __nv_bfloat16* __restrict__ out) {
   using D = DecodeShape<BITS>;
-  constexpr int PF = D::PF, ST = D::STAGES;
+  constexpr bool kDequantFirst = dequant_first<Z>::value;
+  constexpr int PF = D::PF, ST = kDequantFirst ? D::K6_STAGES : D::STAGES;
   constexpr int NX = PF / 2;  // x words per token per lane per step
   constexpr int NS = PF / 4;  // mma steps per 4-word-row step
-  constexpr bool kPerGroupZeros = std::is_same<Z, GroupZeros<BITS>>::value;
+  constexpr bool kPerGroupZeros =
+      std::is_same<typename dequant_first<Z>::zeros, GroupZeros<BITS>>::value;
   constexpr bool kGateUp = std::is_same<Z, GateUpPairs>::value;
-  static_assert(!(FOLD && (kPerGroupZeros || kGateUp)), "K7 takes K1's operands");
+  static_assert(!(FOLD && (kPerGroupZeros || kGateUp || kDequantFirst)),
+                "K7 takes K1's operands");
   constexpr int KP = kDecodeKParts < D::ITS ? kDecodeKParts : D::ITS;  // K shares in use
   extern __shared__ __align__(128) unsigned char smem[];
 
@@ -227,10 +280,15 @@ __global__ void __launch_bounds__(kDecodeThreads)
   const int split = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   // the tile's first column; K2's gate/up tile pairs 32 gate columns with their up columns
   const int c0 = (blockIdx.x / split) * (kGateUp ? kDecodeCols / 2 : kDecodeCols);
-  const int G = K / g;
-  const int k_begin = (rank * G / split) * g;
-  const int n_chunks = ((rank + 1) * G / split - rank * G / split) * (g / kChunk);
-  const int stage_bytes = D::stage_bytes(M);
+  // the cluster splits K in units of a group, K6's in units of a chunk
+  const int unit = kDequantFirst ? kChunk : g;
+  const int G = K / unit;
+  const int k_begin = (rank * G / split) * unit;
+  const int n_chunks = ((rank + 1) * G / split - rank * G / split) * (unit / kChunk);
+  const int stage_bytes = kDequantFirst ? D::k6_stage_bytes(M, g) : D::stage_bytes(M);
+  // a stage: weights, then the scale and qzeros rows, then x
+  const int x_at = kDequantFirst ? D::W_BYTES + D::groups_bytes(g)
+                                 : D::W_BYTES + D::S_BYTES + D::Z_BYTES;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const uint32_t bars = smem_addr(smem);  // full[s] at 8s, empty[s] at 8(ST + s)
   unsigned char* ring = smem + kDecodeBarBytes;
@@ -247,7 +305,8 @@ __global__ void __launch_bounds__(kDecodeThreads)
   if (warp >= kDecodeConsumers) {  // the producers: each lane copies 16-byte pieces
     const int pl = threadIdx.x - 32 * kDecodeConsumers;  // 0 .. 32 * kDecodeProducers - 1
     constexpr int PT = 32 * kDecodeProducers;
-    int grp = k_begin / g, left = g / kChunk;  // the chunk's group; its chunks still to copy
+    // the chunk's group and its chunks still to copy (not K6's: whole groups a chunk)
+    int grp = k_begin / g, left = g / kChunk;
     for (int c = 0; c < n_chunks; ++c) {
       const int s = c % ST;
       if (c >= ST) mbar_wait(bars + 8 * (ST + s), ((c / ST) - 1) & 1);
@@ -262,24 +321,44 @@ __global__ void __launch_bounds__(kDecodeThreads)
           cp_async16(st + 4 * (r * kDecodeRowWords + 4 * q),
                      qw + (size_t)(k0 / PF + r) * N + c0 + dq);
       }
-      if (pl < kDecodeCols / 8 && c0 + tile_offset<kGateUp>(8 * pl, N) < N)
-        cp_async16(st + D::W_BYTES + 16 * pl,
-                   sc + (size_t)grp * N + c0 + tile_offset<kGateUp>(8 * pl, N));
-      if constexpr (kPerGroupZeros) {
-        const int wi = pl - kDecodeCols / 8;
-        if (wi >= 0 && wi < kDecodeCols / PF && c0 / PF + wi < N / PF)
-          cp_async4(st + D::W_BYTES + D::S_BYTES + 4 * wi,
-                    zero.qz + (size_t)grp * zero.words + c0 / PF + wi);
+      if constexpr (kDequantFirst) {  // the chunk's 128/g scale rows, then its qzeros rows
+        const int rows = kChunk / g, g0 = k0 / g;
+        for (int i = pl; i < rows * (kDecodeCols / 8); i += PT) {  // 8 scales of a row
+          const int r = i / (kDecodeCols / 8), q = i % (kDecodeCols / 8);
+          if (c0 + 8 * q < N)
+            cp_async16(st + D::W_BYTES + r * D::S_BYTES + 16 * q,
+                       sc + (size_t)(g0 + r) * N + c0 + 8 * q);
+        }
+        if constexpr (kPerGroupZeros) {
+          constexpr int ZW = kDecodeCols / PF;  // qzeros words of the tile's row
+          for (int i = pl; i < rows * ZW; i += PT) {
+            const int r = i / ZW, wi = i % ZW;
+            if (c0 / PF + wi < N / PF)
+              cp_async4(st + D::W_BYTES + rows * D::S_BYTES + r * D::ZROW_BYTES + 4 * wi,
+                        zero.qz + (size_t)(g0 + r) * zero.words + c0 / PF + wi);
+          }
+        }
+      } else {
+        if (pl < kDecodeCols / 8 && c0 + tile_offset<kGateUp>(8 * pl, N) < N)
+          cp_async16(st + D::W_BYTES + 16 * pl,
+                     sc + (size_t)grp * N + c0 + tile_offset<kGateUp>(8 * pl, N));
+        if constexpr (kPerGroupZeros) {
+          const int wi = pl - kDecodeCols / 8;
+          if (wi >= 0 && wi < kDecodeCols / PF && c0 / PF + wi < N / PF)
+            cp_async4(st + D::W_BYTES + D::S_BYTES + 4 * wi,
+                      zero.qz + (size_t)grp * zero.words + c0 / PF + wi);
+        }
       }
       for (int i = pl; i < M * (kChunk / 8); i += PT) {  // 8 values of an x row
         const int m = i / (kChunk / 8), q = i % (kChunk / 8);
-        cp_async16(st + D::W_BYTES + D::S_BYTES + D::Z_BYTES + 4 * (m * D::XROW + 4 * q),
-                   x + (size_t)m * K + k0 + 8 * q);
+        cp_async16(st + x_at + 4 * (m * D::XROW + 4 * q), x + (size_t)m * K + k0 + 8 * q);
       }
       cp_async_arrive(bars + 8 * s);
-      if (--left == 0) {
-        ++grp;
-        left = g / kChunk;
+      if constexpr (!kDequantFirst) {  // K6's stage holds every group of its chunk
+        if (--left == 0) {
+          ++grp;
+          left = g / kChunk;
+        }
       }
     }
     return;
@@ -294,6 +373,10 @@ __global__ void __launch_bounds__(kDecodeThreads)
   // m-tile j: A row gid is column cw + 2j, A row gid + 8 column cw + 2j + 1
   float acc[2][NT][4], p[2][NT][4], x1[NT][4];
   int left = g / kChunk;  // chunks of the current group still to come
+  // K6: log2(g) (g divides 128), and bf16(z + 128) (8 bits: bf16(z)) of a uniform zero
+  const int g_shift = __ffs(g) - 1;
+  constexpr float kZeroOffset = BITS == 8 ? 0.f : 128.f;
+  const __nv_bfloat162 zoff_c = __float2bfloat162_rn(zero.one(0u, 0) + kZeroOffset);
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -308,10 +391,9 @@ __global__ void __launch_bounds__(kDecodeThreads)
     const unsigned char* st = ring + s * stage_bytes;
     const uint32_t* ws = reinterpret_cast<const uint32_t*>(st);
     const __half* ss = reinterpret_cast<const __half*>(st + D::W_BYTES);
-    const uint32_t* xs =
-        reinterpret_cast<const uint32_t*>(st + D::W_BYTES + D::S_BYTES + D::Z_BYTES);
+    const uint32_t* xs = reinterpret_cast<const uint32_t*>(st + x_at);
     float sf[4];  // the scales of this lane's 4 columns; a chunk is in one group
-    {
+    if constexpr (!kDequantFirst) {
       const uint2 h2 = *reinterpret_cast<const uint2*>(ss + cw);
       const float2 lo = __half22float2(*reinterpret_cast<const __half2*>(&h2.x));
       const float2 hi = __half22float2(*reinterpret_cast<const __half2*>(&h2.y));
@@ -322,6 +404,25 @@ __global__ void __launch_bounds__(kDecodeThreads)
       const int wr = 4 * (KP * i2 + kp) + t;  // the lane's word row: K-rows wr*PF .. wr*PF + PF - 1
       const uint4 q4 = *reinterpret_cast<const uint4*>(ws + wr * kDecodeRowWords + cw);
       const uint32_t q[4] = {q4.x, q4.y, q4.z, q4.w};
+      __nv_bfloat162 s6[4], z6[4];  // K6: bf16(s) and the zero offset of the 4 columns
+      if constexpr (kDequantFirst) {
+        const int gi = (wr * PF) >> g_shift;  // the word row's group in the chunk
+        const uint2 h2 = *reinterpret_cast<const uint2*>(ss + gi * kDecodeCols + cw);
+        const float2 lo = __half22float2(*reinterpret_cast<const __half2*>(&h2.x));
+        const float2 hi = __half22float2(*reinterpret_cast<const __half2*>(&h2.y));
+        s6[0] = __float2bfloat162_rn(lo.x); s6[1] = __float2bfloat162_rn(lo.y);
+        s6[2] = __float2bfloat162_rn(hi.x); s6[3] = __float2bfloat162_rn(hi.y);
+        if constexpr (kPerGroupZeros) {
+          const uint32_t zw = reinterpret_cast<const uint32_t*>(
+              st + D::W_BYTES + (kChunk >> g_shift) * D::S_BYTES + gi * D::ZROW_BYTES)[cw / PF];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            z6[i] = __float2bfloat162_rn(zero.one(zw, cw + i) + kZeroOffset);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) z6[i] = zoff_c;
+        }
+      }
       uint32_t xv[NT][NX];
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
@@ -336,7 +437,7 @@ __global__ void __launch_bounds__(kDecodeThreads)
           // K-slots 2t, 2t+1 hold fields 2s2, 2s2 + PF/2; 2t+8, 2t+9 fields 2s2+1, +PF/2
           b0[nt] = __byte_perm(xv[nt][s2], xv[nt][s2 + NS], 0x5410);
           b1[nt] = __byte_perm(xv[nt][s2], xv[nt][s2 + NS], 0x7632);
-          mma_bf16(x1[nt], ones, b0[nt], b1[nt]);
+          if constexpr (!kDequantFirst) mma_bf16(x1[nt], ones, b0[nt], b1[nt]);
         }
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
@@ -346,6 +447,11 @@ __global__ void __launch_bounds__(kDecodeThreads)
             a[1] = fold_pair<BITS>(q[2 * j + 1], 2 * s2, sf[2 * j + 1]);
             a[2] = fold_pair<BITS>(q[2 * j], 2 * s2 + 1, sf[2 * j]);
             a[3] = fold_pair<BITS>(q[2 * j + 1], 2 * s2 + 1, sf[2 * j + 1]);
+          } else if constexpr (kDequantFirst) {
+            a[0] = dq_pair<BITS>(q[2 * j], 2 * s2, z6[2 * j], s6[2 * j]);
+            a[1] = dq_pair<BITS>(q[2 * j + 1], 2 * s2, z6[2 * j + 1], s6[2 * j + 1]);
+            a[2] = dq_pair<BITS>(q[2 * j], 2 * s2 + 1, z6[2 * j], s6[2 * j]);
+            a[3] = dq_pair<BITS>(q[2 * j + 1], 2 * s2 + 1, z6[2 * j + 1], s6[2 * j + 1]);
           } else {
             a[0] = code_pair<BITS>(q[2 * j], 2 * s2);
             a[1] = code_pair<BITS>(q[2 * j + 1], 2 * s2);
@@ -354,7 +460,7 @@ __global__ void __launch_bounds__(kDecodeThreads)
           }
 #pragma unroll
           for (int nt = 0; nt < NT; ++nt) {
-            if constexpr (FOLD)
+            if constexpr (FOLD || kDequantFirst)
               mma_bf16(acc[j][nt], a, b0[nt], b1[nt]);
             else
               mma_bf16(p[j][nt], a, b0[nt], b1[nt]);
@@ -362,7 +468,7 @@ __global__ void __launch_bounds__(kDecodeThreads)
         }
       }
     }
-    if (--left == 0) {  // the group ends with this chunk
+    if (!kDequantFirst && --left == 0) {  // the group ends with this chunk
       left = g / kChunk;
       float zs[4];  // z * s of the 4 columns, exact in f32
       if constexpr (kPerGroupZeros) {
@@ -483,25 +589,30 @@ __global__ void __launch_bounds__(kDecodeThreads)
 }
 
 // The decode kernel's dynamic shared memory is set once per instantiation,
-// to what M = 8 * NT takes.
+// to what M = 8 * NT takes (K6: at its smallest group).
 template <int BITS, int NT, class Z, bool FOLD>
 cudaError_t decode_smem_attribute() {
-  static const cudaError_t e =
-      cudaFuncSetAttribute(qmm_decode_kernel<BITS, NT, Z, FOLD>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           DecodeShape<BITS>::smem_bytes(8 * NT));
+  using D = DecodeShape<BITS>;
+  static const cudaError_t e = cudaFuncSetAttribute(
+      qmm_decode_kernel<BITS, NT, Z, FOLD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dequant_first<Z>::value ? D::k6_smem_bytes(8 * NT, D::MIN_GROUP) : D::smem_bytes(8 * NT));
   return e;
 }
 
 // Launches the decode kernel with the plan's cluster size: ceil(N / 64) column
 // tiles, which for GateUpPairs (N = 2F) are F / 32 tiles of 32 pairs. Returns
-// 0, -1 when the split is outside 1 .. min(kDecodeMaxSplit, K / g), or the
-// CUDA error.
+// 0, -1 when the split is outside 1 .. min(kDecodeMaxSplit, K / g) (K6:
+// K / 128, and a group of DecodeShape::MIN_GROUP .. 128 rows that divides
+// 128, K a multiple of 128), or the CUDA error.
 template <int BITS, class Z, bool FOLD>
 int launch_decode(const void* x, int M, int K, const void* qw, const void* sc, int N, int g,
                   Z zero, int split, void* out, cudaStream_t stream) {
-  const int smem = DecodeShape<BITS>::smem_bytes(M);
-  if (M < 1 || M > kDecodeMaxM || split < 1 || split > kDecodeMaxSplit || split > K / g)
+  using D = DecodeShape<BITS>;
+  constexpr bool kDequantFirst = dequant_first<Z>::value;
+  const int unit = kDequantFirst ? kChunk : g;  // the kernel's unit of the cluster's split
+  if (kDequantFirst && (g < D::MIN_GROUP || kChunk % g || K % kChunk)) return -1;
+  const int smem = kDequantFirst ? D::k6_smem_bytes(M, g) : D::smem_bytes(M);
+  if (M < 1 || M > kDecodeMaxM || split < 1 || split > kDecodeMaxSplit || split > K / unit)
     return -1;
   const auto launch = [&](auto kernel, cudaError_t attr) -> int {
     if (attr != cudaSuccess) return (int)attr;

@@ -122,9 +122,9 @@ def lib() -> ctypes.CDLL:
             handle.gqt_qmatmul_asym.restype = i
             handle.gqt_qmatmul_fused.argtypes = [vp, i, i, vp, vp, i, i, f, i, i, vp, vp]
             handle.gqt_qmatmul_fused.restype = i
-            handle.gqt_decode_smem_bytes.argtypes = [i, i]
+            handle.gqt_decode_smem_bytes.argtypes = [i, i, i]
             handle.gqt_decode_smem_bytes.restype = i
-            handle.gqt_qmm.argtypes = [vp, i, i, vp, vp, vp, i, i, f, i, vp, vp]
+            handle.gqt_qmm.argtypes = [vp, i, i, vp, vp, vp, i, i, f, i, i, vp, vp]
             handle.gqt_qmm.restype = i
             handle.gqt_qmatmul_planes.argtypes = [vp, i, i, vp, vp, i, i, f, i, i, vp, vp]
             handle.gqt_qmatmul_planes.restype = i

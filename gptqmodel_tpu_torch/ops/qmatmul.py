@@ -5,8 +5,9 @@ read the GPTQ interchange layout directly and take contiguous groups of a
 multiple of 128, 2, 4 or 8 bits, bf16 activations and fp16 scales. At
 M <= 16 they run the decode kernel (``csrc/qmm_decode.cuh``: a
 shared-memory ring, K split across a thread-block cluster), as do both
-passes of K2 (``ops/qmlp.py``); its launch plan, ``decode_plan``, is
-computed here and handed to the C entry.
+passes of K2 (``ops/qmlp.py``) and K6 where its groups divide 128
+(``qmm_decode_supported``); its launch plan, ``decode_plan``, is computed
+here and handed to the C entry.
 
 - K1 (``qmatmul``) replaces the TPU kernel ``_qmm_rt_sym_kernel``
   (``gptqmodel_tpu/ops/pallas_qmatmul.py:198``, reached through ``qmatmul``
@@ -24,7 +25,11 @@ computed here and handed to the C entry.
   with ``rt=False``): contiguous groups of any size that holds whole words
   (``qmm_supported``), ``w = bf16(bf16(c - z) * bf16(s))`` element by
   element, then a product with float32 sums. The zero points are the v2
-  ``qzeros`` words as stored, or the module's one ``zero_const``.
+  ``qzeros`` words as stored, or the module's one ``zero_const``. At
+  M <= 16, with a group that divides 128 and K a multiple of 128, it runs
+  the decode kernel (``Z = DequantFirst``: each weight dequantized before
+  the mma, the cluster splitting K in 128-row chunks); every other shape
+  runs its register tile.
 
 - K4 (``qmatmul_planes``, ``csrc/qmatmul_planes.cu``) replaces
   ``_qmm_rtp_sym_kernel`` (``:385``, with ``_rtp_accumulate`` ``:345``;
@@ -69,13 +74,15 @@ from gptqmodel_tpu_torch.ops.pack import unpack_qweight, unpack_qzeros
 KERNEL_BITS = (2, 4, 8)
 PLANE_BITS = (3, 5, 6, 7)  # K4 and K5
 
-# The decode kernel of K1, K3, K7 and K2 (csrc/qmm_decode.cuh) at M <=
-# DECODE_MAX_M: a block owns DECODE_COLS columns and a whole-group share of
-# K; the blocks of one column tile form a cluster of at most DECODE_MAX_SPLIT
-# (the header's kDecodeMaxM, kDecodeCols and kDecodeMaxSplit). The kernel
+# The decode kernel of K1, K3, K6, K7 and K2 (csrc/qmm_decode.cuh) at M <=
+# DECODE_MAX_M: a block owns DECODE_COLS columns and a share of K in whole
+# groups (K6's groups that divide DECODE_CHUNK: in whole chunks); the blocks
+# of one column tile form a cluster of at most DECODE_MAX_SPLIT (the
+# header's kDecodeMaxM, kDecodeCols, kChunk and kDecodeMaxSplit). The kernel
 # sizes its own shared memory; the plan gives it only the cluster size.
 DECODE_MAX_M = 16
 DECODE_COLS = 64
+DECODE_CHUNK = 128  # K-rows of a stage of the ring
 DECODE_MAX_SPLIT = 8
 # the plan's largest cluster: on an H100, clusters of 8 ran the o and down
 # projections 4-10% slower than clusters of 7 (scripts/decode_sweep.py, PERF.md)
@@ -87,19 +94,23 @@ H100_SMS = 132
 class DecodePlan:
     """How the decode kernel covers an ``[M, K] x [K, N]`` product: ``tiles``
     column tiles of ``DECODE_COLS``, each a cluster of ``split`` blocks
-    along K."""
+    along K, which it splits in units of ``per_unit`` of its ``groups``
+    groups: one, or for groups smaller than a chunk (K6) a chunk's worth."""
 
     tiles: int
     split: int
     groups: int
+    per_unit: int = 1
 
     @property
     def blocks(self) -> int:
         return self.tiles * self.split
 
     def groups_of(self, rank: int) -> range:
-        """The groups that cluster rank ``rank`` sums (the kernel's own rule)."""
-        return range(rank * self.groups // self.split, (rank + 1) * self.groups // self.split)
+        """The groups that cluster rank ``rank`` sums, in whole units (the
+        kernel's own rule)."""
+        units, u = self.groups // self.per_unit, self.per_unit
+        return range(rank * units // self.split * u, (rank + 1) * units // self.split * u)
 
 
 def decode_blocks_per_sm(M: int) -> int:
@@ -111,13 +122,15 @@ def decode_blocks_per_sm(M: int) -> int:
 
 def decode_plan(M: int, K: int, N: int, group_size: int, sms: int = H100_SMS) -> DecodePlan:
     """The decode kernel's launch: the fewest cluster blocks (at most
-    ``DECODE_PLAN_SPLIT``, at most one per group) that give
-    ``decode_blocks_per_sm(M)`` blocks per SM."""
+    ``DECODE_PLAN_SPLIT``, at most one per unit: a group, or a chunk of
+    groups smaller than ``DECODE_CHUNK``) that give ``decode_blocks_per_sm(M)``
+    blocks per SM."""
     g = group_size if group_size > 0 else K
-    G = K // g
+    per_unit = max(1, DECODE_CHUNK // g)
+    units = K // (g * per_unit)
     tiles = -(-N // DECODE_COLS)
-    split = max(1, min(DECODE_PLAN_SPLIT, G, -(-decode_blocks_per_sm(M) * sms // tiles)))
-    return DecodePlan(tiles, split, G)
+    split = max(1, min(DECODE_PLAN_SPLIT, units, -(-decode_blocks_per_sm(M) * sms // tiles)))
+    return DecodePlan(tiles, split, K // g, per_unit)
 
 
 @functools.lru_cache(maxsize=None)
@@ -126,8 +139,8 @@ def _sm_count(index: int) -> int:
 
 
 def _decode_split(x, qweight, scales, *, group_size, name) -> int:
-    """The decode plan's split for the C entry of K1, K3, K7 or one pass of
-    K2 (``x [M, K] @ qweight [., N]``), or 0 above ``DECODE_MAX_M`` rows,
+    """The decode plan's split for the C entry of K1, K3, K6, K7 or one pass
+    of K2 (``x [M, K] @ qweight [., N]``), or 0 above ``DECODE_MAX_M`` rows,
     where K1's tiles run. A weight or scale pointer that the decode kernel
     cannot copy in 16-byte pieces raises."""
     M, K = x.shape
@@ -330,6 +343,14 @@ def qmm_supported(bits: int, group_size: int, K: int, N: int) -> bool:
             and N % 128 == 0 and K % (128 // bits) == 0)
 
 
+def qmm_decode_supported(M: int, K: int, group_size: int) -> bool:
+    """Whether K6 runs the decode kernel: at most ``DECODE_MAX_M`` rows, a
+    group that divides ``DECODE_CHUNK`` and K a whole number of chunks.
+    Every other shape in ``qmm_supported`` runs K6's register tile."""
+    g = group_size if group_size > 0 else K
+    return M <= DECODE_MAX_M and DECODE_CHUNK % g == 0 and K % DECODE_CHUNK == 0
+
+
 def qmm_plain(x, qweight, scales, qzeros, *, bits, group_size, zero_const):
     """Plain PyTorch version of K6: ``w = bf16(bf16(c - z) * bf16(s))`` (the
     difference exact, the product rounded once), then ``bf16(x) @ w`` with
@@ -348,7 +369,8 @@ def qmm_plain(x, qweight, scales, qzeros, *, bits, group_size, zero_const):
 
 def qmm(x, qweight, scales, qzeros, *, bits, group_size, zero_const):
     """K6: ``x [M, K] @ dequant(qweight)`` -> ``[M, N]`` in x's type, for
-    contiguous groups inside ``qmm_supported``.
+    contiguous groups inside ``qmm_supported``: the decode kernel where
+    ``qmm_decode_supported``, else the register tile.
 
     A CUDA tensor goes to the kernel (or raises); a CPU tensor to
     ``qmm_plain``."""
@@ -363,9 +385,12 @@ def qmm(x, qweight, scales, qzeros, *, bits, group_size, zero_const):
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     if M == 0:
         return out
-    rc = _build.lib().gqt_qmm(
+    lib = _build.lib()
+    split = (_decode_split(x, qweight, scales, group_size=g, name="K6")
+             if qmm_decode_supported(M, K, g) else 0)
+    rc = lib.gqt_qmm(
         x.data_ptr(), M, K, qweight.data_ptr(), scales.data_ptr(), qzeros.data_ptr(), N, g,
-        float(zero_const), bits, out.data_ptr(),
+        float(zero_const), bits, split, out.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(rc, "qmm")

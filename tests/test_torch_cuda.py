@@ -210,9 +210,10 @@ def _int_x(rng, M, K, dev):
         torch.bfloat16)
 
 
-# K = 960 splits into 4-word steps unevenly between the 4 warps; M = 1 one
-# row tile, 40 four, 256 the 32 x 32 tiles; g = 16 and 32 put two groups in
-# one mma step at 2 bits
+# K = 960 splits into 4-word steps unevenly between the 4 warps and is off
+# the decode kernel's contract; M = 1 and 40 take the four-row-tile kernel,
+# 256 the 32 x 32 tiles; g = 16 and 32 put two groups in one mma step at 2
+# bits
 @pytest.mark.parametrize("bits", [2, 4, 8])
 @pytest.mark.parametrize("M", [1, 40, 256])
 @pytest.mark.parametrize("g,sym", [(32, True), (64, False), (16, False), (32, False)])
@@ -284,6 +285,120 @@ def test_group32_module_routes_by_rows(cuda_device, M, launched):
     y = registry.qlinear_forward(p, x)
     assert _build.LAUNCHES == dict.fromkeys(_build.LAUNCHES, 0) | {launched: 1}
     assert _rel(y, qlinear_forward_torch(p, x)) <= 1e-3
+
+
+# K6 at M <= 16 on the decode kernel: every group its route takes at 2, 4
+# and 8 bits (16, 32, 64; 8 where it holds whole words), K = 896 (7 chunks,
+# a cluster of 7 blocks, one chunk each), N = 384 (6 column tiles)
+K6_DECODE_GROUPS = [(b, g) for b in (2, 4, 8) for g in (16, 32, 64)] + [(4, 8), (8, 8)]
+
+
+@functools.lru_cache(maxsize=None)
+def _k6_decode_module(bits, g, sym):
+    rng = np.random.default_rng([60, bits, g, int(sym)])
+    p = post_init_module(random_quant_linear(rng, 896, 384, bits, g, device="cuda", sym=sym))
+    assert registry.kernel_route(p) == "K6" and (p.zero_const >= 0) == sym
+    return p
+
+
+def _k6_args(p):
+    return (p.qweight, p.scales, p.qzeros), dict(bits=p.bits, group_size=p.group_size,
+                                                 zero_const=p.zero_const)
+
+
+def _kernel_names(fn):
+    """The kernels the profiler saw in one call of ``fn`` (a session that
+    lost every record is run again, three at most)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if names:
+            return names
+    return []
+
+
+@pytest.mark.parametrize("sym", [True, False])
+@pytest.mark.parametrize("bits,g", K6_DECODE_GROUPS)
+@pytest.mark.parametrize("M", [1, 8, 16])
+def test_qmm_decode_kernel_matches_plain(cuda_device, M, bits, g, sym):
+    """K6 at M <= 16 on the decode kernel: the same bf16 weights as
+    ``qmm_plain``, exact products, f32 sums in another order, one rounding
+    to bf16: 1e-3 relative, one counted launch a call, and the same bits on
+    two more runs."""
+    p = _k6_decode_module(bits, g, sym)
+    x = _x(np.random.default_rng([M, bits, g]), M, p.in_features, cuda_device)
+    args, kw = _k6_args(p)
+    before = _build.LAUNCHES["qmm"]
+    y = qmm(x, *args, **kw)
+    ref = qmm_plain(x, *args, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["qmm"] == before + 1
+    assert y.dtype == torch.bfloat16 and y.shape == (M, p.out_features)
+    assert _rel(y, ref) <= 1e-3
+    assert all(torch.equal(y, qmm(x, *args, **kw)) for _ in range(2))
+
+
+@pytest.mark.parametrize("sym", [True, False])
+@pytest.mark.parametrize("bits,g", [(2, 16), (4, 8), (4, 32), (8, 8), (8, 64)])
+@pytest.mark.parametrize("M", [1, 9, 16])
+def test_qmm_decode_exact_inputs_give_equal_outputs(cuda_device, M, bits, g, sym):
+    """Integer activations and power-of-two scales: every weight, product
+    and sum is exact, so the decode kernel and ``qmm_plain`` agree bit for
+    bit; a scale or zero of the wrong group, chunk or column would not."""
+    rng = np.random.default_rng([61, M, bits, g])
+    p = dataclasses.replace(_k6_decode_module(bits, g, sym))
+    p.scales = _pow2_scales(rng, p, cuda_device)
+    args, kw = _k6_args(p)
+    x = _int_x(rng, M, p.in_features, cuda_device)
+    assert torch.equal(qmm(x, *args, **kw), qmm_plain(x, *args, **kw))
+
+
+def test_qmm_decode_refuses_a_split_or_pointers_it_does_not_take(cuda_device, monkeypatch):
+    """K6's C entry refuses a cluster split past its 7 chunks; a module built
+    from an unaligned view of its weights or scales raises at M <= 16."""
+    from gptqmodel_tpu_torch.ops import qmatmul as qmatmul_mod
+
+    p = _k6_decode_module(4, 32, False)
+    args, kw = _k6_args(p)
+    x = _x(np.random.default_rng(62), 8, p.in_features, cuda_device)
+    plan = qmatmul_mod.decode_plan
+    for split in (8, 9):
+        monkeypatch.setattr(qmatmul_mod, "decode_plan",
+                            lambda *a, s=split: dataclasses.replace(plan(*a), split=s))
+        with pytest.raises(ValueError, match="unsupported"):
+            qmm(x, *args, **kw)
+    monkeypatch.undo()
+    for view in (dataclasses.replace(p, qweight=_unaligned(p.qweight)),
+                 dataclasses.replace(p, scales=_unaligned(p.scales))):
+        with pytest.raises(ValueError, match="aligned"):
+            qmm(x, *_k6_args(view)[0], **kw)
+
+
+# (M, K, g) -> the kernel K6's plan names: the decode kernel's DequantFirst
+# instantiation, or the register tile for a group that does not divide 128,
+# K not a whole number of chunks, or more than 16 rows
+K6_ROUTES = {"decode_m1": (1, 896, 32, "qmm_decode_kernel<"),
+             "decode_m16_g64": (16, 4096, 64, "qmm_decode_kernel<"),
+             "tile_k960": (8, 960, 32, "qmm_kernel<"), "tile_g48": (8, 960, 48, "qmm_kernel<"),
+             "tile_m40": (40, 896, 32, "qmm_kernel<")}
+
+
+@pytest.mark.parametrize("case", list(K6_ROUTES))
+def test_qmm_runs_the_kernel_its_plan_names(cuda_device, case):
+    M, K, g, kernel = K6_ROUTES[case]
+    rng = np.random.default_rng([63, M, K, g])
+    p = post_init_module(random_quant_linear(rng, K, 256, 4, g, device=cuda_device, sym=False))
+    args, kw = _k6_args(p)
+    x = _x(rng, M, K, cuda_device)
+    names = _kernel_names(lambda: qmm(x, *args, **kw))
+    assert names and all(kernel in n for n in names), names
+    assert all("DequantFirst" in n for n in names) == kernel.startswith("qmm_decode")
+    assert _rel(qmm(x, *args, **kw), qmm_plain(x, *args, **kw)) <= 1e-3
 
 
 @pytest.mark.parametrize("bits", [2, 4, 8])

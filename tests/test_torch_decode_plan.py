@@ -1,23 +1,36 @@
-"""The launch plan of the decode kernel of K1, K3, K7 and K2
+"""The launch plan of the decode kernel of K1, K3, K6, K7 and K2
 (``ops/qmatmul.py``, ``decode_plan``), which the wrappers hand to the C
 entries: invariants over shapes inside the kernels' contract, and the split
 it gives each of Llama-3-8B's and Qwen3-30B-A3B's projections on an H100.
-The kernel sizes its own shared memory; ``csrc/qmm_decode.cuh`` asserts at
-compile time that it fits a block and that two blocks an SM keep 24 KB of
-weights in flight."""
+K6's small groups split K in 128-row chunks, and its shapes outside the
+decode contract take the register tile by the plan's rule
+(``qmm_decode_supported``). The kernel sizes its own shared memory;
+``csrc/qmm_decode.cuh`` asserts at compile time that it fits a block and
+that two blocks an SM keep 24 KB of weights in flight, and a card test
+reads the sizes from the library."""
+
+from types import SimpleNamespace
 
 import pytest
+import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+from gptqmodel_tpu_torch.ops import _build
+from gptqmodel_tpu_torch.ops import qmatmul as qmatmul_mod
 from gptqmodel_tpu_torch.ops.qmatmul import (
+    DECODE_CHUNK,
     DECODE_COLS,
     DECODE_MAX_M,
     DECODE_MAX_SPLIT,
     DECODE_PLAN_SPLIT,
     H100_SMS,
+    KERNEL_BITS,
     decode_blocks_per_sm,
     decode_plan,
+    qmm,
+    qmm_decode_supported,
+    qmm_supported,
 )
 
 # (K, N) of Llama-3-8B's projections as the port runs them: q/k/v and
@@ -96,3 +109,146 @@ def test_qwen3_moe_o_projection_takes_the_largest_cluster(M):
     plan = decode_plan(M, 4096, 2048, 128)
     assert (plan.tiles, plan.split, plan.blocks) == (32, DECODE_PLAN_SPLIT, 224)
     assert plan.blocks < 2 * H100_SMS
+
+
+# ---------------------------------------------------------------- K6 (qmm)
+
+
+def k6_groups(bits: int) -> list[int]:
+    """The groups inside ``qmm_supported`` at ``bits`` that divide a chunk."""
+    return [g for g in (4, 8, 16, 32, 64, 128)
+            if DECODE_CHUNK % g == 0 and qmm_supported(bits, g, 4096, 4096)]
+
+
+@st.composite
+def k6_shapes(draw):
+    """(M, K, N, bits, group_size) on K6's decode route."""
+    bits = draw(st.sampled_from(KERNEL_BITS))
+    g = draw(st.sampled_from(k6_groups(bits)))
+    K = DECODE_CHUNK * draw(st.integers(1, 160))
+    N = 128 * draw(st.integers(1, 256))
+    return draw(st.integers(1, DECODE_MAX_M)), K, N, bits, g
+
+
+def test_k6_groups_are_those_qmm_takes_that_divide_a_chunk():
+    assert {b: k6_groups(b) for b in KERNEL_BITS} == {
+        2: [16, 32, 64, 128], 4: [8, 16, 32, 64, 128], 8: [8, 16, 32, 64, 128]}
+
+
+@settings(max_examples=300, deadline=None)
+@given(k6_shapes())
+def test_k6_plan_covers_every_chunk_once_in_whole_groups(shape):
+    """K6's cluster splits K in 128-row chunks: each rank sums whole chunks,
+    at least one, in rank order, and so each chunk's groups whole."""
+    M, K, N, bits, g = shape
+    assert qmm_decode_supported(M, K, g)
+    plan = decode_plan(M, K, N, g)
+    per_chunk = DECODE_CHUNK // g
+    assert (plan.groups, plan.per_unit) == (K // g, per_chunk)
+    for r in range(plan.split):
+        groups = plan.groups_of(r)
+        assert len(groups) >= per_chunk
+        assert groups.start % per_chunk == 0 and groups.stop % per_chunk == 0
+    assert [grp for r in range(plan.split) for grp in plan.groups_of(r)] == list(range(K // g))
+    assert plan.tiles * DECODE_COLS == N
+
+
+@pytest.mark.parametrize("M", [1, 8, 16])
+@pytest.mark.parametrize("bits", KERNEL_BITS)
+def test_k6_cluster_fits(bits, M):
+    """At every group K6's decode route takes, the cluster stays within
+    ``DECODE_MAX_SPLIT`` and takes at most one block a chunk. The ring's
+    fit is the header's ``static_assert``, and ``test_k6_rings_fit_a_block``
+    reads its sizes from the library on the card."""
+    for g in k6_groups(bits):
+        for K in (DECODE_CHUNK, 4096, 14336):
+            split = decode_plan(M, K, 4096, g).split
+            assert 1 <= split <= min(DECODE_PLAN_SPLIT, K // DECODE_CHUNK) <= DECODE_MAX_SPLIT
+
+
+@pytest.mark.parametrize("M", [1, 8, 16])
+@pytest.mark.parametrize("proj", list(LLAMA3_8B))
+def test_llama3_projections_at_group32_fill_the_card(proj, M):
+    """K6 at group 32 on Llama-3-8B's projections: at least two blocks an SM,
+    and the fewest clusters that reach ``decode_blocks_per_sm(M)`` (4 at
+    M <= 8, 2 at 16) unless the cluster cap binds."""
+    K, N = LLAMA3_8B[proj]
+    plan = decode_plan(M, K, N, 32)
+    want = decode_blocks_per_sm(M) * H100_SMS
+    assert plan.blocks >= 2 * H100_SMS
+    assert plan.split == min(DECODE_PLAN_SPLIT, K // DECODE_CHUNK, -(-want // plan.tiles))
+
+
+def _k6_split(monkeypatch, M, K, N, bits, g, sym=True):
+    """The split that ``qmm`` hands K6's C entry for a tensor off the CPU
+    (here on the meta device, with a stand-in library)."""
+    calls = []
+
+    def gqt_qmm(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(_build, "lib", lambda: SimpleNamespace(gqt_qmm=gqt_qmm))
+    monkeypatch.setattr(qmatmul_mod, "_sm_count", lambda index: H100_SMS)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: SimpleNamespace(cuda_stream=0))
+    monkeypatch.setitem(_build.LAUNCHES, "qmm", 0)
+    meta = dict(device="meta")
+    x = torch.empty((M, K), dtype=torch.bfloat16, **meta)
+    qweight = torch.empty((K * bits // 32, N), dtype=torch.int32, **meta)
+    scales = torch.empty((K // g, N), dtype=torch.float16, **meta)
+    qzeros = torch.empty((K // g, N * bits // 32), dtype=torch.int32, **meta)
+    y = qmm(x, qweight, scales, qzeros, bits=bits, group_size=g,
+            zero_const=2.0 ** (bits - 1) if sym else -1.0)
+    assert y.shape == (M, N) and _build.LAUNCHES["qmm"] == 1 and len(calls) == 1
+    return calls[0][10]
+
+
+@pytest.mark.parametrize("M", [1, 8, 16])
+@pytest.mark.parametrize("bits,g", [(2, 16), (4, 8), (4, 32), (8, 64), (4, 128)])
+@pytest.mark.parametrize("sym", [True, False])
+def test_k6_decode_shapes_hand_the_kernel_the_plan_split(monkeypatch, M, bits, g, sym):
+    K, N = 4096, 6144
+    assert _k6_split(monkeypatch, M, K, N, bits, g, sym) == decode_plan(M, K, N, g).split >= 1
+
+
+# (M, K, bits, g) inside qmm_supported but off the decode route: a group that
+# does not divide 128, K not a whole number of chunks, or more than 16 rows
+OFF_DECODE = {"g24": (8, 768, 4, 24), "g48": (8, 960, 4, 48), "g96": (1, 2304, 4, 96),
+              "g192": (16, 4608, 8, 192), "k960": (8, 960, 4, 32), "k1088_g16": (1, 1088, 2, 16),
+              "m17": (17, 4096, 4, 32), "m256": (256, 4096, 4, 32)}
+
+
+@pytest.mark.parametrize("case", list(OFF_DECODE))
+def test_k6_shapes_outside_the_decode_contract_take_the_register_tile(monkeypatch, case):
+    M, K, bits, g = OFF_DECODE[case]
+    N = 256
+    assert qmm_supported(bits, g, K, N) and not qmm_decode_supported(M, K, g)
+    assert _k6_split(monkeypatch, M, K, N, bits, g) == 0
+
+
+# the shared memory the system keeps back for each resident block
+BLOCK_RESERVED_SMEM = 1024
+
+
+@pytest.mark.cuda
+def test_k6_rings_fit_a_block():
+    """K6's ring at every group its decode route takes, and K1's, as the
+    library sizes them (``gqt_decode_smem_bytes``), fit what a block of the
+    card may take; at group 32 and 4 bits enough blocks reside on an SM for
+    the plan (5 at M = 8); a group that does not divide 128 has no ring."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the sizes come from the CUDA library")
+    props = torch.cuda.get_device_properties(0)
+    lib = _build.lib()
+    for bits in KERNEL_BITS:
+        for M in range(1, DECODE_MAX_M + 1):
+            for g in [0] + k6_groups(bits):
+                ring = lib.gqt_decode_smem_bytes(bits, M, g)
+                assert 0 < ring <= props.shared_memory_per_block_optin
+        assert lib.gqt_decode_smem_bytes(bits, 8, 24) == -1
+    for M in (1, 8, 16):
+        ring = lib.gqt_decode_smem_bytes(4, M, 32)
+        resident = props.shared_memory_per_multiprocessor // (ring + BLOCK_RESERVED_SMEM)
+        assert resident >= decode_blocks_per_sm(M)
+        if M == 8:
+            assert resident == 5
