@@ -10,8 +10,10 @@ Phases, each printing JSON lines on stdout:
    what ptxas says of each kernel (registers, static shared memory, spills),
    the dynamic shared memory of the decode kernel (``qmm_decode.cuh``: K1,
    K3, K6, K7 and both passes of K2 at M <= 16) by bits and M, and its
-   instantiations; it fails if K1's, K2's or K6's old 16-row tile is still
-   built, or if K6's decode instantiations are missing.
+   instantiations and K10's ring by bm (``gqt_qmoe_smem_bytes``); it fails
+   if K1's, K2's or K6's old 16-row tile is still built, if K6's or K10's
+   decode instantiations are missing, or if K10's old ``qmoe_pass_kernel``
+   instantiations are still built.
 2. ``kernels``: each kernel against its plain PyTorch version on the card,
    at the shapes of Llama-3-8B's main paths: K1 (``qmatmul``) at the qkv, o,
    gate_up and down projections for M = 1, 8, 16 (its decode kernel) and
@@ -35,7 +37,11 @@ Phases, each printing JSON lines on stdout:
    989 TFLOP/s (bf16, K1 and K2) or 67 TFLOP/s (float32, K8 and K9). Then
    the MoE kernels at Qwen3-30B-A3B's widths (D 2048, F 768, 128 experts,
    top-8, g 128, 4-bit, symmetric), routed by seeded router logits: K10
-   (``qmoe_mlp_e2e``) at N = 1, 8 and 1024 tokens, twice each for equal bits,
+   (``qmoe_mlp_e2e``) at N = 1, 8 and 1024 tokens in the rt contract (the
+   stacks') and the ic one, twice each for equal bits, its device time also
+   by pass (gate|up, down, combine: the profiler's kernel names, which must
+   be the decode kernel's ``MoeGateUp`` and ``MoeDown`` and the combine)
+   and held to its byte bound,
    K11 and K12 (``qmoe_mlp_matmul_dyn``, ``qmoe_mlp_matmul``) at N = 8 and
    128, equal to each other, and K13 (``qmoe_matmul``) on gate|up and down
    at N = 8 and 128; their bound counts the distinct routed experts' words
@@ -138,15 +144,18 @@ Phases, each printing JSON lines on stdout:
    written under ``build/``, then ``GPTQModel.load(dir).optimize()
    .generate(ids, 64)`` at B = 8, T = 128, bf16 KV. Asserted: 2 K1 (qkv, o)
    and 1 K10 per layer in the prefill and in every decode step, no other
-   kernel. Printed: load s and peak memory, device memory, prefill ms,
-   decode ms per step, tokens/s and the device's busy share.
+   kernel; K10's passes in the profiled decode steps on the decode ring
+   (``MoeGateUp``, ``MoeDown``), no ``qmoe_pass_kernel``. Printed: load s
+   and peak memory, device memory, prefill ms, decode ms per step, tokens/s,
+   the device's busy share and K10's device ms per step by pass.
 18. ``compare-moe``: its first 2 layers, the kernel path against the plain
    versions, teacher-forced: the plain path is fed the kernel path's tokens
    and follows its routes, experts and weights (the router's bf16 logits
    flip an expert at a near tie, or a weight by an ulp, and move a token's
    logits more than the kernels do); logits within 1e-2, the count of
    (token, layer) routes where the plain path's own router chose other
-   experts, and the largest change of its probabilities.
+   experts, and the largest change of its probabilities; the kernel path's
+   K10 ran its ring passes and its combine (the profiler's kernel names).
 19. ``moe-routes``: layer 0 stacked again under each ``GPTQ_TPU_QMOE_*``
    setting and run at N = 8 and 1024 tokens: K10 (rt, the default; ic with
    ``RT=0``), K11, K12, K13 and the dense fallback; each within 2e-2 of the
@@ -173,7 +182,8 @@ one decode step at B = 8 (K1 and K7 over qkv and o of every layer, K2 over
 every layer's MLP, K3, K6, K4 and K5 over qkv, o, gate_up and down of every
 layer, K6 at group 32, symmetric, K4 and K5 at 3 bits, stitched), K8 and K9 one quantized
 layer (K8 one solve of each group, K9 each group's 128-column blocks), K10
-one decode step at B = 8 over the 48 MoE layers, K11-K13 one MoE layer at
+one decode step at B = 8 over the 48 MoE layers (rt; also ``ms_by_pass``),
+K11-K13 one MoE layer at
 N = 8 tokens (K13 gate|up and down). A failed check raises and exits
 non-zero. Without a CUDA device it exits 1 and prints no result. The
 records also go to ``chiprun_out/chip_smoke/chip_smoke.json``. Float32
@@ -585,7 +595,38 @@ def moe_bytes(top_i, stacks, rows_in: int, rows_out: int) -> int:
     return distinct * per_expert + 2 * (rows_in + rows_out)
 
 
-def moe_kernel_cases(dev, timed, errors, copies_for) -> list:
+def moe_rotated(stacks, n_bytes: int) -> list:
+    """The words and scales of ``stacks``, then copies of them:
+    ``copies_for(n_bytes)`` sets to rotate through past the L2."""
+    base = tuple(t for st in stacks for t in (st.qweight, st.scales))
+    return [base] + [tuple(t.clone() for t in base) for _ in range(copies_for(n_bytes) - 1)]
+
+
+def k10_inputs(gu, dn, router, g, bm_of):
+    """K10's inputs at N = 1, 8 and 1024 tokens (``MOE_E2E_NS``), one dict
+    an N: the routed rows, the slot plan at ``bm_of(M)`` rows a slot (the
+    model's ``qmoe.slot_rows``), the operands of ``qmoe_mlp_e2e``, the bytes
+    it must move, the stacks' sets to rotate through, and the keyword
+    arguments of either contract, ``kw(rt)``."""
+    from gptqmodel_tpu_torch.ops import qmoe
+
+    E, D, F = gu.qweight.shape[0], gu.in_features, gu.out_features // 2
+    for N in MOE_E2E_NS:
+        x, w, top_i = moe_routing(router, N, g)
+        M = N * w.shape[1]
+        bm = bm_of(M)
+        S = qmoe.slot_bound(M, E, bm)
+        ids, counts, row_pos = qmoe.plan_rows(top_i.reshape(-1), E, bm, S)
+        n_bytes = moe_bytes(top_i, (gu, dn), N * D, N * D)
+        yield {"N": N, "M": M, "bm": bm, "S": S, "x": x, "ids": ids,
+               "ops": qmoe.e2e_operands(row_pos.reshape(N, -1), w, counts, bm),
+               "n_bytes": n_bytes, "distinct": int(top_i.unique().numel()),
+               "sets": moe_rotated((gu, dn), n_bytes),
+               "kw": lambda rt, bm=bm: dict(bits=4, G_gu=gu.G, G_d=dn.G, F=F, bm=bm, zc_gu=8.0,
+                                            zc_d=8.0, rt_gu=rt, rt_d=rt)}
+
+
+def moe_kernel_cases(dev) -> list:
     """K10 at N = 1, 8 and 1024 tokens (two runs each, for equal bits), K11
     and K12 at N = 8 and 128 (equal to each other), K13 gate|up and down at
     N = 8 and 128, at Qwen3-30B-A3B's widths, each against its plain
@@ -599,49 +640,45 @@ def moe_kernel_cases(dev, timed, errors, copies_for) -> list:
     E, D, F = gu.qweight.shape[0], gu.in_features, gu.out_features // 2
     cases = []
 
-    def rotated(routed_bytes):
-        base = (gu.qweight, gu.scales, dn.qweight, dn.scales)
-        return [base] + [tuple(t.clone() for t in base)
-                         for _ in range(copies_for(routed_bytes) - 1)]
-
     def case(kernel, N, M, y, ref, kern, plain, n_bytes, ops, tol, **extra):
         rel, mx = errors(y, ref)
-        k = timed(kern, extra["copies"])
-        p = timed(plain, extra["copies"], budget_ms=100.0)
         b_ms, b_by = bound(n_bytes, ops)
+        k10 = kernel == "qmoe_e2e"
+        k = timed(kern, extra["copies"], floor_ms=b_ms if k10 else 0.0)
+        p = timed(plain, extra["copies"], budget_ms=100.0)
         c = {"kernel": kernel, "N": N, "M": M, "D": D, "F": F, "E": E, "rel_err": rel,
              "max_abs_err": mx, "ms": k["ms"], "wall_ms": k["wall_ms"], "plain_ms": p["ms"],
              "plain_wall_ms": p["wall_ms"], "bound_ms": b_ms, "bound_by": b_by,
              "library_ms": None,
              "library": "null: no PyTorch call computes a quantized grouped expert MLP",
              **extra}
+        if k10:  # by pass, from the profiler's kernel names
+            c["ms_by_pass"] = by_k10_pass(k["rows"])
+            c["kernel_names"] = k["kernels"]
         cases.append(c)
         emit({"phase": "kernels", **c})
         require(rel <= tol, f"{kernel} N={N}: rel {rel} > {tol}")
+        require(not k10 or set(c["ms_by_pass"]) == {"gate_up", "down", "combine"},
+                f"K10 N={N} ran {k['kernels']}")
 
-    for N in MOE_E2E_NS:
-        x, w, top_i = moe_routing(router, N, g)
-        M = N * w.shape[1]
-        bm = 8 if M <= 128 else (16 if M <= 1024 else 32)
-        S = qmoe.slot_bound(M, E, bm)
-        ids, counts, row_pos = qmoe.plan_rows(top_i.reshape(-1), E, bm, S)
-        ops_ = qmoe.e2e_operands(row_pos.reshape(N, -1), w, counts, bm)
-        n_bytes = moe_bytes(top_i, (gu, dn), N * D, N * D)
-        sets = rotated(n_bytes)
-        kw = dict(bits=4, G_gu=gu.G, G_d=dn.G, F=F, bm=bm, zc_gu=8.0, zc_d=8.0,
-                  rt_gu=gu.rt, rt_d=dn.rt)
-        kern = lambda i: qmoe.qmoe_mlp_e2e(x, ids, *ops_, *sets[i], **kw)
-        plain = lambda i: qmoe.qmoe_mlp_e2e_plain(x, ids, *ops_, *sets[i], **kw)
-        before = _build.LAUNCHES["qmoe_e2e"]
-        y, y2, ref = kern(0), kern(0), plain(0)
-        torch.cuda.synchronize()
-        require(_build.LAUNCHES["qmoe_e2e"] == before + 2, "K10 did not launch")
-        identical = torch.equal(y, y2)
-        case("qmoe_e2e", N, M, y, ref, kern, plain, n_bytes, 2.0 * M * 3 * D * F, K10_TOL,
-             bm=bm, slots=S, distinct_experts=int(top_i.unique().numel()),
-             rt=[gu.rt, dn.rt], identical_runs=identical, copies=len(sets))
-        require(identical, f"K10 N={N}: two runs gave different bits")
-        del sets, y, y2, ref
+    require(gu.rt and dn.rt, "Qwen3-30B-A3B's stacks take the rt contract")
+    for c in k10_inputs(gu, dn, router, g, qmoe.slot_rows):
+        N, M, x, ids, ops_, sets = c["N"], c["M"], c["x"], c["ids"], c["ops"], c["sets"]
+        for rt in (True, False):  # the stacks' rt contract (the default), then ic
+            kw = c["kw"](rt)
+            kern = lambda i, kw=kw: qmoe.qmoe_mlp_e2e(x, ids, *ops_, *sets[i], **kw)
+            plain = lambda i, kw=kw: qmoe.qmoe_mlp_e2e_plain(x, ids, *ops_, *sets[i], **kw)
+            before = _build.LAUNCHES["qmoe_e2e"]
+            y, y2, ref = kern(0), kern(0), plain(0)
+            torch.cuda.synchronize()
+            require(_build.LAUNCHES["qmoe_e2e"] == before + 2, "K10 did not launch")
+            identical = torch.equal(y, y2)
+            case("qmoe_e2e", N, M, y, ref, kern, plain, c["n_bytes"], 2.0 * M * 3 * D * F,
+                 K10_TOL, bm=c["bm"], slots=c["S"], distinct_experts=c["distinct"],
+                 rt=[rt, rt], identical_runs=identical, copies=len(sets))
+            require(identical, f"K10 N={N} rt={rt}: two runs gave different bits")
+            del y, y2, ref
+        del c, sets
 
     for N in MOE_SLOT_NS:
         x, w, top_i = moe_routing(router, N, g)
@@ -654,7 +691,7 @@ def moe_kernel_cases(dev, timed, errors, copies_for) -> list:
         xs[pos.long()] = x[order // w.shape[1]]
         n_used = (counts > 0).sum().to(torch.int32).reshape(1)
         n_bytes = moe_bytes(top_i, (gu, dn), M * D, M * D)
-        sets = rotated(n_bytes)
+        sets = moe_rotated((gu, dn), n_bytes)
         kw = dict(bits=4, G_gu=gu.G, G_d=dn.G, F=F, bm=bm, zc_gu=8.0, zc_d=8.0,
                   out_dtype=torch.bfloat16)
         dyn = lambda i: qmoe.qmoe_mlp_matmul_dyn(xs, ids, counts, n_used, *sets[i], **kw)
@@ -1076,7 +1113,8 @@ def moe_phases(root: Path, card: str) -> dict:
     require(counts == want, f"moe generate launched {counts}, expected {want}")
     require(tokens.shape == (B, NEW) and ((tokens >= 0) & (tokens < V)).all(),
             f"tokens {tokens.shape}")
-    timing = serve_timing(spec, params, ids, False, counts_per, counts_per)
+    timing = serve_timing(spec, params, ids, False, counts_per, counts_per, by_k10_pass)
+    k10_step = timing["device_ms_per_step_by_class"]
     out["moe_slice"] = rec = {
         "phase": "moe-slice", "gpu": card, "layers": L, "B": B, "T": T, "new_tokens": NEW,
         "kv": "bf16", "checkpoint_bytes": n_bytes, "write_s": write_s, "load_s": load_s,
@@ -1088,6 +1126,9 @@ def moe_phases(root: Path, card: str) -> dict:
         **timing,
     }
     emit(rec)
+    # K10's layers ran its passes on the decode ring, and no qmoe_pass_kernel
+    require(all(k10_step.get(p, 0.0) > 0 for p in ("gate_up", "down", "combine"))
+            and "qmoe_pass_kernel" not in k10_step, f"moe-slice's decode steps ran {k10_step}")
 
     # ---------------------------------------------------------- compare-moe
     spec2 = dataclasses.replace(spec, num_layers=2)
@@ -1129,8 +1170,13 @@ def moe_phases(root: Path, card: str) -> dict:
             transformer._topk = topk
         return torch.stack(outs), toks, routes, prob_diff
 
+    from torch.profiler import ProfilerActivity, profile
+
     _build.reset_counts()
-    got, got_toks, got_routes, _ = run(8)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got, got_toks, got_routes, _ = run(8)
+        torch.cuda.synchronize()
+    k10_parts = sorted({k10_pass(e.key) for e in prof.key_averages()} - {"other"})
     kernel_counts = dict(_build.LAUNCHES)
     with plain_versions():
         ref, ref_toks, ref_routes, prob_diff = run(8, forced=got_toks, forced_routes=got_routes)
@@ -1151,8 +1197,9 @@ def moe_phases(root: Path, card: str) -> dict:
         "routes": "the plain path follows the kernel path's routes (experts and weights)",
         "token_layer_routes": n_routes, "token_layer_routes_differing": differ,
         "router_prob_max_abs_diff": max(prob_diff),
-        "decode_distinct_experts_per_layer": distinct}
+        "decode_distinct_experts_per_layer": distinct, "k10_kernels": k10_parts}
     emit(rec)
+    require(k10_parts == ["combine", "down", "gate_up"], f"compare-moe's K10 ran {k10_parts}")
     require(bool(torch.isfinite(got).all()), "non-finite logits at 2 layers")
     require(rel <= SLICE_TOL, f"kernel path vs plain path: rel {rel} > {SLICE_TOL}")
     del got, ref, params2, model, params, layers
@@ -1200,11 +1247,12 @@ def moe_phases(root: Path, card: str) -> dict:
 
 
 def serve_timing(spec, params, ids, kv_quant, prefill_counts: dict,
-                 step_counts: dict) -> dict:
+                 step_counts: dict, classify=None) -> dict:
     """The served path through the engine, timed: one prefill (host clock
     with a synchronize), 40 decode steps after 2 of warm-up (CUDA events, and
     the host clock for the enqueue), then 4 steps under torch.profiler for
-    the device's busy share and its time by kernel. Asserts the launch counts
+    the device's busy share and its time by kernel (and, with ``classify``,
+    by the class it gives each kernel name). Asserts the launch counts
     of the prefill and of the timed steps, finite logits, and one decode step
     that makes no synchronizing call (``torch.cuda.set_sync_debug_mode``)."""
     import torch
@@ -1279,6 +1327,7 @@ def serve_timing(spec, params, ids, kv_quant, prefill_counts: dict,
         "device_ms_per_step_gather": sum(ms for k, ms in by_kernel
                                          if "scatter_gather" in k or "indexSelect" in k),
         "device_ms_per_step_by_kernel": [[k[:90], ms] for k, ms in by_kernel[:12]],
+        **({"device_ms_per_step_by_class": classify(by_kernel)} if classify else {}),
     }
 
 
@@ -1333,7 +1382,8 @@ def device_ms(run, per: int, activities=None, uniform: bool = True) -> tuple[flo
 def timed(fn, n_copies: int, budget_ms: float = 150.0, floor_ms: float = 0.0) -> dict:
     """Device time per call (``ms``: torch.profiler, kernels only), wall
     time per call (``wall_ms``: CUDA events around the loop, host launch
-    gaps included) and the names of the kernels the profiler saw. A reading
+    gaps included), the names of the kernels the profiler saw and their
+    (name, ms per call) rows. A reading
     under ``floor_ms`` (the work's bound: lost records) is rejected and the
     loop timed again; a third such reading fails."""
     import torch
@@ -1357,7 +1407,7 @@ def timed(fn, n_copies: int, budget_ms: float = 150.0, floor_ms: float = 0.0) ->
         ms, rows = device_ms(loop, iters)
         if ms >= floor_ms:
             return {"ms": ms, "wall_ms": start.elapsed_time(end) / iters,
-                    "kernels": [name for name, _ in rows]}
+                    "kernels": [name for name, _ in rows], "rows": rows}
         PROFILER_SHORT["under_bound"] += 1
         print(f"chip_smoke: {ms} ms a call is under the bound of {floor_ms} ms: timed again",
               file=sys.stderr)
@@ -1368,6 +1418,28 @@ def on_decode_kernel(names: list) -> bool:
     """Whether every kernel the profiler saw is an instantiation of the
     decode kernel (``csrc/qmm_decode.cuh``)."""
     return bool(names) and all("qmm_decode_kernel<" in n for n in names)
+
+
+def k10_pass(name: str) -> str:
+    """The part of K10 a kernel name belongs to: its gate|up or down pass on
+    the decode ring (``qmm_decode_kernel`` with ``MoeGateUp`` or
+    ``MoeDown``), its combine, ``qmoe_pass_kernel`` (K11-K13's kernel, which
+    K10 no longer runs), or none of them."""
+    if "qmm_decode_kernel<" in name and "MoeGateUp" in name:
+        return "gate_up"
+    if "qmm_decode_kernel<" in name and "MoeDown" in name:
+        return "down"
+    if "qmoe_combine_kernel" in name:
+        return "combine"
+    return "qmoe_pass_kernel" if "qmoe_pass_kernel" in name else "other"
+
+
+def by_k10_pass(rows) -> dict:
+    """Device ms of (kernel name, ms) rows summed by ``k10_pass``."""
+    out = {}
+    for name, ms in rows:
+        out[k10_pass(name)] = out.get(k10_pass(name), 0.0) + ms
+    return out
 
 
 def errors(y, ref) -> tuple[float, float]:
@@ -1904,6 +1976,18 @@ def main() -> int:
             for z in ("UniformZero", f"GroupZeros,{bits}"):
                 require(f"qmm_decode_kernel<{bits},{nt},DequantFirst,{z},0>" in decode_kernels,
                         f"no {bits}-bit K6 decode kernel on {z} for {8 * nt} rows in the build")
+    # K10's passes on the ring at every bm (n-tiles 1-4), rt and ic;
+    # qmoe_pass_kernel keeps only K11-K13's instantiations (<bits, MT, NT,
+    # epilogue 0 or 1>), not K10's older ones
+    for bits in KERNEL_BITS:
+        for nt in (1, 2, 3, 4):
+            for z in ("MoeGateUp", "MoeDown"):
+                for zeros in ("UniformZero", "DequantFirst,UniformZero"):
+                    require(f"qmm_decode_kernel<{bits},{nt},{z},{zeros},0>" in decode_kernels,
+                            f"no {bits}-bit K10 {z} on {zeros} for {8 * nt} rows in the build")
+    old_k10 = [k for k in kernels_ptxas if k.startswith("qmoe_pass_kernel<")
+               and not re.fullmatch(r"qmoe_pass_kernel<\d,\d,\d,[01]>", k)]
+    require(not old_k10, f"K10's qmoe_pass_kernel instantiations are still built: {old_k10}")
     old_tile = (r"qmatmul_kernel<\d,1,1,UniformZero(,0)?>|qmlp_gate_up_kernel<\d,1>"
                 r"|qmm_kernel<\d,1,1,.*>")
     old_tiles = [k for k in kernels_ptxas if re.fullmatch(old_tile, k)]
@@ -1917,6 +2001,9 @@ def main() -> int:
                  "k6_decode_dynamic_smem_g32": {f"{bits}-bit": {M: smem_of(bits, M, 32)
                                                                 for M in (1, 8, 16)}
                                                 for bits in KERNEL_BITS},
+                 "k10_dynamic_smem": {f"{bits}-bit": {bm: _build.lib().gqt_qmoe_smem_bytes(bits, bm)
+                                                      for bm in (8, 16, 24, 32)}
+                                      for bits in KERNEL_BITS},
                  "decode_kernels": decode_kernels,
                  "torch": torch.__version__, "cuda": torch.version.cuda}
     emit(build_rec)
@@ -2095,7 +2182,7 @@ def main() -> int:
         require(equal, f"K9 {proj}: differs from its plain version by {max_err}")
         del blk, got, ref
     torch.cuda.empty_cache()
-    cases += moe_kernel_cases(dev, timed, errors, copies_for)
+    cases += moe_kernel_cases(dev)
     small_rng = np.random.default_rng([SEED, 400])
     cases += k6_kernel_cases(dev, small_rng, k1_shapes)
     cases += k7_kernel_cases(dev, small_rng, k1_shapes)
@@ -2311,19 +2398,25 @@ def main() -> int:
                            if isinstance(r, dict)) for k in _build.LAUNCHES}
 
     def moe_entry(kernel: str, N: int, times: int) -> dict:
-        """The kernel's cases at N tokens, summed (K13: gate|up and down),
-        times ``times``."""
-        sel = [c for c in cases if c["kernel"] == kernel and c.get("N") == N]
+        """The kernel's cases at N tokens, summed (K13: gate|up and down; K10
+        its default rt contract, and by pass), times ``times``."""
+        sel = [c for c in cases if c["kernel"] == kernel and c.get("N") == N
+               and c.get("rt", [True, True]) == [True, True]]
         total = lambda key: times * sum(c[key] for c in sel)
-        return {"max_abs_err": max(c["max_abs_err"] for c in cases if c["kernel"] == kernel),
-                "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
-                "bound_by": ("bytes" if all(c["bound_by"] == "bytes" for c in sel)
-                             else "operations"), "library_ms": None}
+        out = {"max_abs_err": max(c["max_abs_err"] for c in cases if c["kernel"] == kernel),
+               "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+               "bound_by": ("bytes" if all(c["bound_by"] == "bytes" for c in sel)
+                            else "operations"), "library_ms": None}
+        if all("ms_by_pass" in c for c in sel):
+            out["ms_by_pass"] = {p: times * sum(c["ms_by_pass"][p] for c in sel)
+                                 for p in ("gate_up", "down", "combine")}
+        return out
 
     per_route_layer = "MoE layer at N = 8 tokens (moe-routes)"
     summary += [
         {"name": "qmoe_mlp_e2e (K10)", "route": "cuda",
-         "source": "gptqmodel_tpu_torch/csrc/qmoe.cu",
+         "source": ("gptqmodel_tpu_torch/csrc/qmm_decode.cuh (gate|up and down), "
+                    "gptqmodel_tpu_torch/csrc/qmoe.cu (launch, combine)"),
          "replaces": "gptqmodel_tpu/ops/pallas_qmoe.py:678",
          "launches": moe["moe_slice"]["generate_counts"]["qmoe_e2e"],
          "launches_per": f"moe generate run ({L_moe} layers)",

@@ -1,5 +1,6 @@
 // The decode kernel of K1, K3, K6 and K7, and of both passes of K2 (M <= 16
-// rows): y[M, N] = x[M, K] @ dequant(qweight).
+// rows): y[M, N] = x[M, K] @ dequant(qweight); and of both passes of K10
+// (qmoe.cu), a slot of up to 32 routed rows a block.
 //
 // At decode the packed weights are the whole cost: each is read once and
 // used for at most 16 rows, so the card's 3.35 TB/s bounds the kernel and
@@ -77,6 +78,25 @@
 // bf16(bf16(c - z) * bf16(s)) (dq_pair, K6's rounding), which the mma sums
 // straight into the accumulator. No X1 mma, no correction when a group
 // ends; reduction and store are K1's.
+//
+// K10 (qmoe.cu) launches it twice per MoE layer with Z = MoeGateUp<ZS> and
+// MoeDown<ZS>, ZS = UniformZero (rt: K1's arithmetic) or
+// DequantFirst<UniformZero> (ic), over a grid whose y is the S slots of the
+// routing plan (SlotPlan). Block row s reads ids[s] and *n_used on the
+// device: a slot at or past n_used returns before its first barrier, with
+// its whole cluster (which shares s); otherwise its producers offset qw and
+// the bf16 scales to expert ids[s] ([E, K/PF, N], [E, Gp, N]), and the
+// consumers hold no offset pointer across their loop (the epilogue offsets
+// inner by the slot's rows). M = bm = 8 .. 32 rows a slot, bm / 8 n-tiles.
+// Gate|up is K2's pass on 32 gate and
+// their 32 up columns, x's rows gathered by the producers through tok (a
+// row of -1 becomes 16-byte zero copies, cp.async's src-size 0), inner
+// written for the slot's rows; down reads the slot's rows of inner and
+// writes ybuf = __fmul_rn(y, w[row]) in f32 for qmoe.cu's combine. K10's
+// groups are multiples of 128, so a stage holds one scale row as K1's does,
+// and the cluster splits K in whole groups; its ic weight
+// bf16(bf16(c - zc) * s) is K10's bf16((q - zc) * s), as c - zc is exact in
+// bf16 and the product exact in f32 before its one rounding.
 
 #pragma once
 
@@ -93,6 +113,7 @@
 namespace gqt {
 
 constexpr int kDecodeMaxM = 16;
+constexpr int kDecodeMoeMaxM = 32;  // K10's slot rows: one n-tile per 8
 constexpr int kDecodeCols = 64;                   // columns per block
 constexpr int kDecodeRowWords = kDecodeCols + 8;  // a word row in shared memory
 constexpr int kDecodeMaxSplit = 8;                // blocks per cluster (portable limit)
@@ -149,12 +170,14 @@ struct DecodeShape {
   __host__ __device__ static constexpr int k6_smem_bytes(int M, int g) {
     return kDecodeBarBytes + K6_STAGES * k6_stage_bytes(M, g);
   }
-  // A block's ring at the most rows (K6's at its smallest group) fits what a
-  // block may take; and at the two blocks an SM that the launch plan gives
+  // A block's ring at the most rows (K6's at its smallest group, K10's at
+  // 32 rows a slot) fits what a block may take; and at the two blocks an SM
+  // that the launch plan gives
   // at least, the ring's depth less one chunks of weights in flight (K1's
   // and K6's) make 24 KB or more an SM.
   static constexpr bool fits() {
     return smem_bytes(kDecodeMaxM) <= kDecodeMaxSmem &&
+           smem_bytes(kDecodeMoeMaxM) <= kDecodeMaxSmem &&
            k6_smem_bytes(kDecodeMaxM, MIN_GROUP) <= kDecodeMaxSmem &&
            2 * (STAGES - 1) * WR * kDecodeCols * 4 >= 24 * 1024 &&
            2 * (K6_STAGES - 1) * WR * kDecodeCols * 4 >= 24 * 1024;
@@ -245,6 +268,67 @@ struct dequant_first<DequantFirst<Z>> : std::true_type {
   using zeros = Z;
 };
 
+// K10 (qmoe.cu): the routing plan that a MoE pass reads on the device. Block
+// row blockIdx.y is slot s of the plan; its M = bm rows are slot rows
+// s*bm .. s*bm + bm - 1 and its weights expert ids[s]'s.
+struct SlotPlan {
+  const int* ids;     // [S] expert of each slot
+  const int* n_used;  // [1] the used slots, a prefix of the S
+  const int* tok;     // gate|up: [S*bm] token row of each slot row, -1 a zero row
+  const float* w;     // down: [S*bm] routing weight of each slot row
+  int Gp;             // scale rows per expert: scales [E, Gp, N]
+};
+// K10's gate|up pass (the columns paired as GateUpPairs', x rows gathered
+// through tok, inner written per slot row) and its down pass (x the slot
+// rows of inner, ybuf = y * w written in f32), over the zeros Z:
+// UniformZero (rt) or DequantFirst<UniformZero> (ic).
+template <class Z>
+struct MoeGateUp : Z {
+  SlotPlan plan;
+};
+template <class Z>
+struct MoeDown : Z {
+  SlotPlan plan;
+};
+
+// Whether Z is a K10 pass, which one, and its zeros.
+template <class Z>
+struct moe_pass : std::false_type {
+  using zeros = Z;
+  static constexpr bool gate_up = false;
+};
+template <class Z>
+struct moe_pass<MoeGateUp<Z>> : std::true_type {
+  using zeros = Z;
+  static constexpr bool gate_up = true;
+};
+template <class Z>
+struct moe_pass<MoeDown<Z>> : std::true_type {
+  using zeros = Z;
+  static constexpr bool gate_up = false;
+};
+
+// The scales' type: fp16 as the modules store them (K1, K2, K3, K6, K7),
+// bf16 in K10's expert stacks.
+template <class Z>
+using decode_scale_t =
+    typename std::conditional<moe_pass<Z>::value, __nv_bfloat16, __half>::type;
+
+// A pair of scales, and the pair as float.
+template <class SC>
+using scale_pair_t =
+    typename std::conditional<std::is_same<SC, __half>::value, __half2, __nv_bfloat162>::type;
+__device__ __forceinline__ float2 to_float2(__half2 v) { return __half22float2(v); }
+__device__ __forceinline__ float2 to_float2(__nv_bfloat162 v) { return __bfloat1622float2(v); }
+
+// 16 bytes from src, or 16 zero bytes where zero is set (cp.async's
+// src-size 0): K10's padding rows.
+__device__ __forceinline__ void cp_async16_or_zero(uint32_t dst, const void* src, bool zero) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(zero ? 0 : 16)
+               : "memory");
+}
+
 // Where tile column c lies past the tile's first column: c itself, or for
 // K2's gate/up tile (GATE_UP, N = 2F) the up columns' offset past F.
 template <bool GATE_UP>
@@ -253,27 +337,43 @@ __device__ __forceinline__ int tile_offset(int c, int N) {
 }
 
 // Z is GroupZeros<BITS> (K3), UniformZero (K1; K7 with FOLD), GateUpPairs
-// (K2's gate/up pass, out [M, N/2]) or DequantFirst<either zeros> (K6); NT
-// n-tiles of 8 tokens (M <= 8 * NT). Grid: (column tiles) x split blocks,
-// clusters of split along x; dynamic shared memory
+// (K2's gate/up pass, out [M, N/2]), DequantFirst<either zeros> (K6), or
+// MoeGateUp / MoeDown of UniformZero or DequantFirst<UniformZero> (K10's
+// passes: M = bm rows of the slot blockIdx.y, scales bf16); NT n-tiles of 8
+// tokens (M <= 8 * NT). Grid: (column tiles) x split blocks, clusters of
+// split along x (K10: by S slots along y); dynamic shared memory
 // DecodeShape<BITS>::smem_bytes(M) (K6: k6_smem_bytes(M, g)).
 template <int BITS, int NT, class Z, bool FOLD>
 __global__ void __launch_bounds__(kDecodeThreads)
     qmm_decode_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
-                      const uint32_t* __restrict__ qw, const __half* __restrict__ sc, int N,
-                      int g, Z zero, __nv_bfloat16* __restrict__ out) {
+                      const uint32_t* __restrict__ qw, const decode_scale_t<Z>* __restrict__ sc,
+                      int N, int g, Z zero, __nv_bfloat16* __restrict__ out) {
   using D = DecodeShape<BITS>;
-  constexpr bool kDequantFirst = dequant_first<Z>::value;
-  constexpr int PF = D::PF, ST = kDequantFirst ? D::K6_STAGES : D::STAGES;
+  using SC = decode_scale_t<Z>;
+  using SC2 = scale_pair_t<SC>;
+  constexpr bool kMoe = moe_pass<Z>::value;
+  using ZS = typename moe_pass<Z>::zeros;  // the zeros (under K10's slot plan)
+  constexpr bool kDequantFirst = dequant_first<ZS>::value;
+  // K6's stage holds every group of its chunk; K10's groups are whole chunks
+  constexpr bool kChunkGroups = kDequantFirst && !kMoe;
+  constexpr int PF = D::PF, ST = kChunkGroups ? D::K6_STAGES : D::STAGES;
   constexpr int NX = PF / 2;  // x words per token per lane per step
   constexpr int NS = PF / 4;  // mma steps per 4-word-row step
   constexpr bool kPerGroupZeros =
-      std::is_same<typename dequant_first<Z>::zeros, GroupZeros<BITS>>::value;
-  constexpr bool kGateUp = std::is_same<Z, GateUpPairs>::value;
-  static_assert(!(FOLD && (kPerGroupZeros || kGateUp || kDequantFirst)),
+      std::is_same<typename dequant_first<ZS>::zeros, GroupZeros<BITS>>::value;
+  constexpr bool kGateUp = std::is_same<Z, GateUpPairs>::value || moe_pass<Z>::gate_up;
+  static_assert(!(FOLD && (kPerGroupZeros || kGateUp || kDequantFirst || kMoe)),
                 "K7 takes K1's operands");
   constexpr int KP = kDecodeKParts < D::ITS ? kDecodeKParts : D::ITS;  // K shares in use
   extern __shared__ __align__(128) unsigned char smem[];
+
+  // K10: the slot's expert; a slot past the used ones leaves with its whole
+  // cluster, which shares the slot
+  int expert = 0;
+  if constexpr (kMoe) {
+    expert = zero.plan.ids[blockIdx.y];  // both loads in flight at once
+    if ((int)blockIdx.y >= *zero.plan.n_used) return;
+  }
 
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
@@ -281,14 +381,14 @@ __global__ void __launch_bounds__(kDecodeThreads)
   // the tile's first column; K2's gate/up tile pairs 32 gate columns with their up columns
   const int c0 = (blockIdx.x / split) * (kGateUp ? kDecodeCols / 2 : kDecodeCols);
   // the cluster splits K in units of a group, K6's in units of a chunk
-  const int unit = kDequantFirst ? kChunk : g;
+  const int unit = kChunkGroups ? kChunk : g;
   const int G = K / unit;
   const int k_begin = (rank * G / split) * unit;
   const int n_chunks = ((rank + 1) * G / split - rank * G / split) * (unit / kChunk);
-  const int stage_bytes = kDequantFirst ? D::k6_stage_bytes(M, g) : D::stage_bytes(M);
+  const int stage_bytes = kChunkGroups ? D::k6_stage_bytes(M, g) : D::stage_bytes(M);
   // a stage: weights, then the scale and qzeros rows, then x
-  const int x_at = kDequantFirst ? D::W_BYTES + D::groups_bytes(g)
-                                 : D::W_BYTES + D::S_BYTES + D::Z_BYTES;
+  const int x_at = kChunkGroups ? D::W_BYTES + D::groups_bytes(g)
+                                : D::W_BYTES + D::S_BYTES + D::Z_BYTES;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const uint32_t bars = smem_addr(smem);  // full[s] at 8s, empty[s] at 8(ST + s)
   unsigned char* ring = smem + kDecodeBarBytes;
@@ -305,6 +405,11 @@ __global__ void __launch_bounds__(kDecodeThreads)
   if (warp >= kDecodeConsumers) {  // the producers: each lane copies 16-byte pieces
     const int pl = threadIdx.x - 32 * kDecodeConsumers;  // 0 .. 32 * kDecodeProducers - 1
     constexpr int PT = 32 * kDecodeProducers;
+    if constexpr (kMoe) {  // K10: the expert's words and scales (down: the slot's rows of inner)
+      qw += (size_t)expert * (K / PF) * N;
+      sc += (size_t)expert * zero.plan.Gp * N;
+      if constexpr (!kGateUp) x += (size_t)blockIdx.y * M * K;
+    }
     // the chunk's group and its chunks still to copy (not K6's: whole groups a chunk)
     int grp = k_begin / g, left = g / kChunk;
     for (int c = 0; c < n_chunks; ++c) {
@@ -321,7 +426,7 @@ __global__ void __launch_bounds__(kDecodeThreads)
           cp_async16(st + 4 * (r * kDecodeRowWords + 4 * q),
                      qw + (size_t)(k0 / PF + r) * N + c0 + dq);
       }
-      if constexpr (kDequantFirst) {  // the chunk's 128/g scale rows, then its qzeros rows
+      if constexpr (kChunkGroups) {  // the chunk's 128/g scale rows, then its qzeros rows
         const int rows = kChunk / g, g0 = k0 / g;
         for (int i = pl; i < rows * (kDecodeCols / 8); i += PT) {  // 8 scales of a row
           const int r = i / (kDecodeCols / 8), q = i % (kDecodeCols / 8);
@@ -351,10 +456,16 @@ __global__ void __launch_bounds__(kDecodeThreads)
       }
       for (int i = pl; i < M * (kChunk / 8); i += PT) {  // 8 values of an x row
         const int m = i / (kChunk / 8), q = i % (kChunk / 8);
-        cp_async16(st + x_at + 4 * (m * D::XROW + 4 * q), x + (size_t)m * K + k0 + 8 * q);
+        if constexpr (kMoe && kGateUp) {  // K10's gate|up: the slot row's token, -1 zeros
+          const int r = zero.plan.tok[(size_t)blockIdx.y * M + m];
+          cp_async16_or_zero(st + x_at + 4 * (m * D::XROW + 4 * q),
+                             x + (size_t)(r < 0 ? 0 : r) * K + k0 + 8 * q, r < 0);
+        } else {
+          cp_async16(st + x_at + 4 * (m * D::XROW + 4 * q), x + (size_t)m * K + k0 + 8 * q);
+        }
       }
       cp_async_arrive(bars + 8 * s);
-      if constexpr (!kDequantFirst) {  // K6's stage holds every group of its chunk
+      if constexpr (!kChunkGroups) {  // K6's stage holds every group of its chunk
         if (--left == 0) {
           ++grp;
           left = g / kChunk;
@@ -373,7 +484,8 @@ __global__ void __launch_bounds__(kDecodeThreads)
   // m-tile j: A row gid is column cw + 2j, A row gid + 8 column cw + 2j + 1
   float acc[2][NT][4], p[2][NT][4], x1[NT][4];
   int left = g / kChunk;  // chunks of the current group still to come
-  // K6: log2(g) (g divides 128), and bf16(z + 128) (8 bits: bf16(z)) of a uniform zero
+  // K6: log2(g) (g divides 128; K10's g >= 128: group 0 of the stage), and
+  // bf16(z + 128) (8 bits: bf16(z)) of a uniform zero
   const int g_shift = __ffs(g) - 1;
   constexpr float kZeroOffset = BITS == 8 ? 0.f : 128.f;
   const __nv_bfloat162 zoff_c = __float2bfloat162_rn(zero.one(0u, 0) + kZeroOffset);
@@ -390,13 +502,13 @@ __global__ void __launch_bounds__(kDecodeThreads)
     mbar_wait(bars + 8 * s, (c / ST) & 1);
     const unsigned char* st = ring + s * stage_bytes;
     const uint32_t* ws = reinterpret_cast<const uint32_t*>(st);
-    const __half* ss = reinterpret_cast<const __half*>(st + D::W_BYTES);
+    const SC* ss = reinterpret_cast<const SC*>(st + D::W_BYTES);
     const uint32_t* xs = reinterpret_cast<const uint32_t*>(st + x_at);
     float sf[4];  // the scales of this lane's 4 columns; a chunk is in one group
     if constexpr (!kDequantFirst) {
       const uint2 h2 = *reinterpret_cast<const uint2*>(ss + cw);
-      const float2 lo = __half22float2(*reinterpret_cast<const __half2*>(&h2.x));
-      const float2 hi = __half22float2(*reinterpret_cast<const __half2*>(&h2.y));
+      const float2 lo = to_float2(*reinterpret_cast<const SC2*>(&h2.x));
+      const float2 hi = to_float2(*reinterpret_cast<const SC2*>(&h2.y));
       sf[0] = lo.x; sf[1] = lo.y; sf[2] = hi.x; sf[3] = hi.y;
     }
 #pragma unroll
@@ -408,8 +520,8 @@ __global__ void __launch_bounds__(kDecodeThreads)
       if constexpr (kDequantFirst) {
         const int gi = (wr * PF) >> g_shift;  // the word row's group in the chunk
         const uint2 h2 = *reinterpret_cast<const uint2*>(ss + gi * kDecodeCols + cw);
-        const float2 lo = __half22float2(*reinterpret_cast<const __half2*>(&h2.x));
-        const float2 hi = __half22float2(*reinterpret_cast<const __half2*>(&h2.y));
+        const float2 lo = to_float2(*reinterpret_cast<const SC2*>(&h2.x));
+        const float2 hi = to_float2(*reinterpret_cast<const SC2*>(&h2.y));
         s6[0] = __float2bfloat162_rn(lo.x); s6[1] = __float2bfloat162_rn(lo.y);
         s6[2] = __float2bfloat162_rn(hi.x); s6[3] = __float2bfloat162_rn(hi.y);
         if constexpr (kPerGroupZeros) {
@@ -571,7 +683,25 @@ __global__ void __launch_bounds__(kDecodeThreads)
           acc[j][nt][i] = gt / (1.f + expf(-gt)) * red[slot_of(0, 1, j, nt, i)];
         }
     N /= 2;  // inner [M, F]: gate column f0 + cw is inner's column
+    if constexpr (kMoe) out += (size_t)blockIdx.y * M * N;  // K10: the slot's rows of inner
   } else if (rank != 0 || kp != 0 || c0 + cw >= N) {
+    return;
+  }
+  if constexpr (kMoe && !kGateUp) {  // K10's down: ybuf = y * w[row] in f32, per slot row
+    float* y = reinterpret_cast<float*>(out);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = 8 * nt + 2 * t + h;
+        if (m < M) {
+          const size_t row = (size_t)blockIdx.y * M + m;
+          const float wr = zero.plan.w[row];
+          *reinterpret_cast<float4*>(y + row * N + c0 + cw) =
+              make_float4(__fmul_rn(acc[0][nt][h], wr), __fmul_rn(acc[0][nt][2 + h], wr),
+                          __fmul_rn(acc[1][nt][h], wr), __fmul_rn(acc[1][nt][2 + h], wr));
+        }
+      }
     return;
   }
 #pragma unroll
@@ -599,6 +729,32 @@ cudaError_t decode_smem_attribute() {
   return e;
 }
 
+// Launches kernel (an instantiation of qmm_decode_kernel, its dynamic
+// shared memory set by attr) over grid, in clusters of split blocks along x.
+template <class Kernel, class Z>
+int launch_clusters(Kernel kernel, cudaError_t attr, dim3 grid, int split, int smem,
+                    cudaStream_t stream, const void* x, int M, int K, const void* qw,
+                    const void* sc, int N, int g, Z zero, void* out) {
+  if (attr != cudaSuccess) return (int)attr;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kDecodeThreads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr_[1];
+  attr_[0].id = cudaLaunchAttributeClusterDimension;
+  attr_[0].val.clusterDim.x = (unsigned)split;
+  attr_[0].val.clusterDim.y = 1;
+  attr_[0].val.clusterDim.z = 1;
+  cfg.attrs = attr_;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const __nv_bfloat16*>(x), M, K,
+      static_cast<const uint32_t*>(qw), static_cast<const decode_scale_t<Z>*>(sc), N, g, zero,
+      static_cast<__nv_bfloat16*>(out));
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
 // Launches the decode kernel with the plan's cluster size: ceil(N / 64) column
 // tiles, which for GateUpPairs (N = 2F) are F / 32 tiles of 32 pairs. Returns
 // 0, -1 when the split is outside 1 .. min(kDecodeMaxSplit, K / g) (K6:
@@ -614,30 +770,45 @@ int launch_decode(const void* x, int M, int K, const void* qw, const void* sc, i
   const int smem = kDequantFirst ? D::k6_smem_bytes(M, g) : D::smem_bytes(M);
   if (M < 1 || M > kDecodeMaxM || split < 1 || split > kDecodeMaxSplit || split > K / unit)
     return -1;
-  const auto launch = [&](auto kernel, cudaError_t attr) -> int {
-    if (attr != cudaSuccess) return (int)attr;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((unsigned)(((N + kDecodeCols - 1) / kDecodeCols) * split));
-    cfg.blockDim = dim3(kDecodeThreads);
-    cfg.dynamicSmemBytes = (size_t)smem;
-    cfg.stream = stream;
-    cudaLaunchAttribute attr_[1];
-    attr_[0].id = cudaLaunchAttributeClusterDimension;
-    attr_[0].val.clusterDim.x = (unsigned)split;
-    attr_[0].val.clusterDim.y = 1;
-    attr_[0].val.clusterDim.z = 1;
-    cfg.attrs = attr_;
-    cfg.numAttrs = 1;
-    const cudaError_t e = cudaLaunchKernelEx(
-        &cfg, kernel, static_cast<const __nv_bfloat16*>(x), M, K,
-        static_cast<const uint32_t*>(qw), static_cast<const __half*>(sc), N, g, zero,
-        static_cast<__nv_bfloat16*>(out));
-    return (int)(e != cudaSuccess ? e : cudaGetLastError());
+  const dim3 grid((unsigned)(((N + kDecodeCols - 1) / kDecodeCols) * split));
+  return M <= 8 ? launch_clusters(qmm_decode_kernel<BITS, 1, Z, FOLD>,
+                                  decode_smem_attribute<BITS, 1, Z, FOLD>(), grid, split, smem,
+                                  stream, x, M, K, qw, sc, N, g, zero, out)
+                : launch_clusters(qmm_decode_kernel<BITS, 2, Z, FOLD>,
+                                  decode_smem_attribute<BITS, 2, Z, FOLD>(), grid, split, smem,
+                                  stream, x, M, K, qw, sc, N, g, zero, out);
+}
+
+// Launches one of K10's passes (Z = MoeGateUp<...> or MoeDown<...>) over the
+// S slots of the plan, bm = 8 * NT rows a slot: ceil(N / 64) column tiles
+// (gate|up: F / 32 tiles of 32 pairs) x split blocks along x, the slots
+// along y. Returns 0, -1 for bm outside 8, 16, 24, 32, S outside
+// 1 .. 65535 or a split outside 1 .. min(kDecodeMaxSplit, K / g), or the
+// CUDA error.
+template <int BITS, class Z>
+int launch_moe_pass(const void* x, int bm, int K, const void* qw, const void* sc, int N, int g,
+                    Z zero, int split, int S, void* out, cudaStream_t stream) {
+  static_assert(moe_pass<Z>::value, "K10's passes take a slot plan");
+  using D = DecodeShape<BITS>;
+  if (bm < 8 || bm > kDecodeMoeMaxM || bm % 8 || S < 1 || S > 65535 || split < 1 ||
+      split > kDecodeMaxSplit || split > K / g)
+    return -1;
+  const dim3 grid((unsigned)(((N + kDecodeCols - 1) / kDecodeCols) * split), (unsigned)S);
+  const int smem = D::smem_bytes(bm);
+  const auto launch = [&](auto kernel, cudaError_t attr) {
+    return launch_clusters(kernel, attr, grid, split, smem, stream, x, bm, K, qw, sc, N, g,
+                           zero, out);
   };
-  return M <= 8 ? launch(qmm_decode_kernel<BITS, 1, Z, FOLD>,
-                         decode_smem_attribute<BITS, 1, Z, FOLD>())
-                : launch(qmm_decode_kernel<BITS, 2, Z, FOLD>,
-                         decode_smem_attribute<BITS, 2, Z, FOLD>());
+  switch (bm / 8) {
+    case 1: return launch(qmm_decode_kernel<BITS, 1, Z, false>,
+                          decode_smem_attribute<BITS, 1, Z, false>());
+    case 2: return launch(qmm_decode_kernel<BITS, 2, Z, false>,
+                          decode_smem_attribute<BITS, 2, Z, false>());
+    case 3: return launch(qmm_decode_kernel<BITS, 3, Z, false>,
+                          decode_smem_attribute<BITS, 3, Z, false>());
+    default: return launch(qmm_decode_kernel<BITS, 4, Z, false>,
+                           decode_smem_attribute<BITS, 4, Z, false>());
+  }
 }
 
 }  // namespace gqt

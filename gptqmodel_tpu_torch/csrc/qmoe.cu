@@ -11,11 +11,7 @@
 // are a prefix of the static bound S. Weights qw [E, K/PF, N] int32 in the
 // interchange layout, scales [E, Gp, N] bf16.
 //
-// One device routine serves all four: a block of 4 warps computes one slot's
-// bm rows (one or two 16-row mma tiles) against 8*NT columns of the slot's
-// expert, the warps splitting K by whole groups and adding in warp order
-// (block_reduce, no atomics). The B operand is built in registers from the
-// packed words as in K1 (qmm_common.cuh), in one of two contracts:
+// Two contracts:
 //   rt: raw codes, per-group partial dots P_g, acc += P_g*s_g - X1_g*zc*s_g
 //       (K1's arithmetic, the scales bf16-valued in f32);
 //   ic: each weight dequantized to bf16((q - zc)*s) (the product is exact in
@@ -24,29 +20,50 @@
 // mapped onto the packed fields and x gathered with the same map, so no
 // permute is needed and the sums are the same products.
 //
-// Passes, each a launch over (column tiles, S slots); a slot that is not
-// used returns at once (K12, K13: count == 0; K10, K11: s >= *n_used, read
-// on the device, so the routing plan never visits the host):
-//   gate|up  -> inner [S*bm, F] = bf16(silu(g)*u)    (K10 gathers x rows
-//               through tok, -1 a zero row; K11, K12 read slot-sorted rows)
+// K10 runs both passes on the decode ring of qmm_decode.cuh (K1's
+// producers, ring, consumers and rank-order cluster reduction), one block
+// per (slot, 64-column tile, cluster rank), bm = 8 .. 32 rows a slot as
+// bm / 8 n-tiles of 8 tokens, the weights the mma's A operand:
+//   gate|up (MoeGateUp) -> inner [S*bm, F] = bf16(silu(g)*u): 32 gate columns
+//              and their 32 up columns a tile, as K2's GateUpPairs; the
+//              producers gather x rows through tok, -1 a zero row;
+//   down (MoeDown)    -> ybuf [S*bm, D] f32 = __fmul_rn(y, w[row]): x the
+//              slot rows of inner, 64 columns of D a tile;
+//   combine           -> out[n] = sum of ybuf over token n's slot rows, from
+//              0 in ascending slot (= expert) order in f32, rounded once: the
+//              TPU kernel's accumulation order, with no float atomics.
+// A block reads its slot's expert and *n_used on the device and exits at
+// once past the used slots, with its whole cluster (one slot), so the
+// routing plan never visits the host. rt is K1's zero type (UniformZero),
+// ic is K6's (DequantFirst<UniformZero>): bf16(bf16(c - zc) * s) equals
+// bf16((q - zc) * s) for bf16 scales, as c - zc is exact in bf16 and the
+// product exact in f32 before its one rounding. K10's groups are multiples
+// of 128, so a stage holds one bf16 scale row. The launch plan (cluster
+// split over K, grid) depends on the routed rows, K, N and the SM count,
+// never on bm, so a row's sums do not depend on bm either.
+//
+// K11-K13 run qmoe_pass_kernel: a block of 4 warps computes one slot's bm
+// rows (one or two 16-row mma tiles) against 8*NT columns of the slot's
+// expert, the warps splitting K by whole groups and adding in warp order
+// (block_reduce, no atomics), the B operand built in registers from the
+// packed words as in K1 (qmm_common.cuh), in the ic contract.
+//   gate|up  -> inner [S*bm, F] = bf16(silu(g)*u) (slot-sorted rows)
 //   down / K13 -> out [S*bm, N], rows at or past the count 0 (bf16 or f32)
-//   K10 down   -> ybuf [S*bm, D] f32 = y * w[row]
-//   K10 combine-> out[n] = sum of ybuf over token n's slot rows, from 0 in
-//               ascending slot (= expert) order in f32, rounded once: the
-//               TPU kernel's accumulation order, with no float atomics.
-// K11 and K12 run the same passes and differ only in which slots they skip,
-// so their results are equal bit for bit; two runs of any of them are too.
+// A slot that is not used writes 0 (K12, K13: count == 0; K11: s >=
+// *n_used, read on the device). K11 and K12 run the same passes and differ
+// only in which slots they skip, so their results are equal bit for bit;
+// two runs of any of them are too.
 //
 // What bounds them on an H100 (3.35 TB/s, 989 TFLOP/s bf16): at decode the
 // routed experts' packed weights, read once each (K10 at B = 8, top-8 of
 // 128: about 51 distinct experts, 120 MB a layer, 0.037 ms); at prefill the
-// routed rows' operations. The design is the simple one: every slot block
+// routed rows' operations. K11-K13 stay the simple design: every slot block
 // reads its expert's words (slots of one expert are neighbours in launch
 // order and meet them in L2), decode tiles are 16 rows by 8 or 16 columns,
-// and there is no wgmma, TMA or persistent scheduling yet.
-// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W: K10 at
-// B = 8 takes 0.17 ms a layer against its 0.037 ms byte bound, at the
-// prefill of 1024 tokens 1.63 ms against 0.095 ms.
+// no wgmma, TMA or persistent scheduling. Measured by chip_smoke.py on an
+// NVIDIA H100 80GB HBM3 at 700 W (PERF.md): K10 0.083 ms a layer at B = 8
+// against its 0.037 ms byte bound, 0.94 ms at the prefill of 1024 tokens
+// against 0.095 ms; K11-K13 about 0.15 ms at N = 8 against 0.034 ms.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -54,16 +71,16 @@
 #include <stdint.h>
 
 #include "qmm_common.cuh"
+#include "qmm_decode.cuh"
 
 namespace gqt {
 
-enum Epilogue { kStoreMasked = 0, kActInner = 1, kWeighted = 2 };
+enum Epilogue { kStoreMasked = 0, kActInner = 1 };
 constexpr int kMaxTopk = 16;
 
 struct PassArgs {
-  const __nv_bfloat16* x;  // A rows: token rows (gather) or slot rows
+  const __nv_bfloat16* x;  // A rows: the slot rows
   int ldx;
-  const int* tok;          // gather: the x row of each slot row, -1 none
   const int* ids;          // [S] expert of each slot
   const int* counts;       // [S] rows of each slot, or NULL (all bm)
   const int* n_used;       // [1] used slots, or NULL (skip by count)
@@ -72,7 +89,6 @@ struct PassArgs {
   const __nv_bfloat16* sc; // [E, Gp, N]
   int Gp, g;
   float zc;
-  const float* w;          // kWeighted: routing weight of each slot row
   void* out;               // kActInner: inner [S*bm, F]; else [S*bm, N]
   int out_f32;             // kStoreMasked: float32 (1) or bf16 (0)
   int F;                   // kActInner: gate columns [0, F), up [F, 2F)
@@ -87,8 +103,9 @@ __device__ __forceinline__ uint32_t dequant_pair(uint32_t codes, float zc, float
 
 // The warp's product over K-rows [k_begin, k_end) (multiples of g, itself a
 // multiple of kChunk) for the slot's tile rows src[mt][h] (x row, -1 zero)
-// and columns cols[nt] .. +7; acc as in qmm_common.cuh's warp_tile.
-template <int BITS, int MT, int NT, bool RT>
+// and columns cols[nt] .. +7, in the ic contract; acc as in qmm_common.cuh's
+// warp_tile.
+template <int BITS, int MT, int NT>
 __device__ __forceinline__ void slot_warp_tile(
     const __nv_bfloat16* __restrict__ x, int ldx, const int (&src)[MT][2],
     const uint32_t* __restrict__ qw, const __nv_bfloat16* __restrict__ sc, int N,
@@ -102,15 +119,12 @@ __device__ __forceinline__ void slot_warp_tile(
   const int lane = threadIdx.x & 31;
   const int t = lane & 3, gid = lane >> 2;
 
-  float p[MT][NT][4], x1[MT][2];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    x1[mt][0] = x1[mt][1] = 0.f;
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = p[mt][nt][i] = 0.f;
-  }
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
   if (k_begin >= k_end) return;
 
   uint32_t w[IT][NT], wn[IT][NT];
@@ -126,12 +140,10 @@ __device__ __forceinline__ void slot_warp_tile(
   for (int k0 = k_begin; k0 < k_end; k0 += kChunk) {
     if (k0 + kChunk < k_end) load_w(k0 + kChunk, wn);  // in flight during the math
     const int grp = k0 / g;
-    float sv[NT];  // ic: the scale of this lane's B column in the chunk's group
-    if constexpr (!RT) {
+    float sv[NT];  // the scale of this lane's B column in the chunk's group
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-        sv[nt] = __bfloat162float(sc[(size_t)grp * N + cols[nt] + gid]);
-    }
+    for (int nt = 0; nt < NT; ++nt)
+      sv[nt] = __bfloat162float(sc[(size_t)grp * N + cols[nt] + gid]);
 #pragma unroll
     for (int it = 0; it < IT; ++it) {
       uint32_t b[NS][NT][2];
@@ -139,12 +151,8 @@ __device__ __forceinline__ void slot_warp_tile(
       for (int s = 0; s < NS; ++s)
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
-          b[s][nt][0] = code_pair<BITS>(w[it][nt], 2 * s);
-          b[s][nt][1] = code_pair<BITS>(w[it][nt], 2 * s + 1);
-          if constexpr (!RT) {
-            b[s][nt][0] = dequant_pair(b[s][nt][0], zc, sv[nt]);
-            b[s][nt][1] = dequant_pair(b[s][nt][1], zc, sv[nt]);
-          }
+          b[s][nt][0] = dequant_pair(code_pair<BITS>(w[it][nt], 2 * s), zc, sv[nt]);
+          b[s][nt][1] = dequant_pair(code_pair<BITS>(w[it][nt], 2 * s + 1), zc, sv[nt]);
         }
       const int kx = k0 + it * KI + t * PF;
 #pragma unroll
@@ -153,48 +161,13 @@ __device__ __forceinline__ void slot_warp_tile(
         uint32_t xa[NX], xb[NX];
         load_x<NX>(x + (size_t)(ra < 0 ? 0 : ra) * ldx + kx, ra >= 0, xa);
         load_x<NX>(x + (size_t)(rb < 0 ? 0 : rb) * ldx + kx, rb >= 0, xb);
-        if constexpr (RT) {
-#pragma unroll
-          for (int i = 0; i < NX; ++i) {
-            x1[mt][0] += pair_sum(xa[i]);
-            x1[mt][1] += pair_sum(xb[i]);
-          }
-        }
 #pragma unroll
         for (int s = 0; s < NS; ++s) {
           const uint32_t a[4] = {
               __byte_perm(xa[s], xa[s + NS], 0x5410), __byte_perm(xb[s], xb[s + NS], 0x5410),
               __byte_perm(xa[s], xa[s + NS], 0x7632), __byte_perm(xb[s], xb[s + NS], 0x7632)};
 #pragma unroll
-          for (int nt = 0; nt < NT; ++nt) {
-            if constexpr (RT) mma_bf16(p[mt][nt], a, b[s][nt][0], b[s][nt][1]);
-            else mma_bf16(acc[mt][nt], a, b[s][nt][0], b[s][nt][1]);
-          }
-        }
-      }
-    }
-    if constexpr (RT) {
-      if ((k0 + kChunk) % g == 0) {  // the group ends with this chunk
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {  // the quad's lanes hold disjoint K-rows
-            x1[mt][h] += __shfl_xor_sync(0xffffffffu, x1[mt][h], 1);
-            x1[mt][h] += __shfl_xor_sync(0xffffffffu, x1[mt][h], 2);
-          }
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt) {
-            const float2 s = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-                sc + (size_t)grp * N + cols[nt] + 2 * t));
-            const float zs0 = zc * s.x, zs1 = zc * s.y;
-            acc[mt][nt][0] += p[mt][nt][0] * s.x - x1[mt][0] * zs0;
-            acc[mt][nt][1] += p[mt][nt][1] * s.y - x1[mt][0] * zs1;
-            acc[mt][nt][2] += p[mt][nt][2] * s.x - x1[mt][1] * zs0;
-            acc[mt][nt][3] += p[mt][nt][3] * s.y - x1[mt][1] * zs1;
-#pragma unroll
-            for (int i = 0; i < 4; ++i) p[mt][nt][i] = 0.f;
-          }
-          x1[mt][0] = x1[mt][1] = 0.f;
+          for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], a, b[s][nt][0], b[s][nt][1]);
         }
       }
     }
@@ -213,7 +186,7 @@ __device__ __forceinline__ void store2(void* out, size_t i, int f32, float a, fl
 }
 
 // One slot (blockIdx.y) against one column tile (blockIdx.x) of its expert.
-template <int BITS, int MT, int NT, bool RT, int EPI, bool GATHER>
+template <int BITS, int MT, int NT, int EPI>
 __global__ void __launch_bounds__(kThreads) qmoe_pass_kernel(const PassArgs a) {
   __shared__ float red[(kWarps - 1) * MT * NT * 4 * 32];
   constexpr int PF = 32 / BITS;
@@ -242,11 +215,11 @@ __global__ void __launch_bounds__(kThreads) qmoe_pass_kernel(const PassArgs a) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int i = 16 * mt + 8 * h + gid, r = s * a.bm + i;
-        src[mt][h] = i < a.bm ? (GATHER ? a.tok[r] : r) : -1;
+        src[mt][h] = i < a.bm ? r : -1;
       }
     const int G = a.K / a.g;
     const int k_begin = (warp * G / kWarps) * a.g, k_end = ((warp + 1) * G / kWarps) * a.g;
-    slot_warp_tile<BITS, MT, NT, RT>(
+    slot_warp_tile<BITS, MT, NT>(
         a.x, a.ldx, src, a.qw + (size_t)e * (a.K / PF) * a.N,
         a.sc + (size_t)e * a.Gp * a.N, a.N, cols, a.g, k_begin, k_end, a.zc, acc);
     block_reduce<MT, NT>(red, acc);
@@ -275,12 +248,6 @@ __global__ void __launch_bounds__(kThreads) qmoe_pass_kernel(const PassArgs a) {
           v[j] = gt / (1.f + expf(-gt)) * acc[mt][1][2 * h + j];  // silu(g) * u, f32
         }
         store_bf16x2(static_cast<__nv_bfloat16*>(a.out) + r * a.F + cols[0] + 2 * t, v[0], v[1]);
-      } else if constexpr (EPI == kWeighted) {
-        const float wr = a.w[r];
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-          *reinterpret_cast<float2*>(static_cast<float*>(a.out) + r * a.N + cols[nt] + 2 * t) =
-              make_float2(__fmul_rn(acc[mt][nt][2 * h], wr), __fmul_rn(acc[mt][nt][2 * h + 1], wr));
       } else {
         const bool k = i < keep;
 #pragma unroll
@@ -292,6 +259,8 @@ __global__ void __launch_bounds__(kThreads) qmoe_pass_kernel(const PassArgs a) {
 }
 
 // K10's combine: out[n, :] = sum over token n's slot rows, ascending, from 0.
+// Block (n, j) takes token n's columns j*4*blockDim.x .., every
+// 4*blockDim.x*gridDim.y.
 __global__ void qmoe_combine_kernel(const float* __restrict__ y, const int* __restrict__ tok_pos,
                                     int topk, int D, int out_f32, void* __restrict__ out) {
   const int n = blockIdx.x;
@@ -302,7 +271,8 @@ __global__ void qmoe_combine_kernel(const float* __restrict__ y, const int* __re
     for (; i > 0 && pos[i - 1] > v; --i) pos[i] = pos[i - 1];
     pos[i] = v;
   }
-  for (int d = 4 * threadIdx.x; d < D; d += 4 * blockDim.x) {
+  for (int d = 4 * (blockIdx.y * blockDim.x + threadIdx.x); d < D;
+       d += 4 * blockDim.x * gridDim.y) {
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int j = 0; j < topk; ++j) {
       const float4 v = *reinterpret_cast<const float4*>(y + (size_t)pos[j] * D + d);
@@ -317,34 +287,31 @@ __global__ void qmoe_combine_kernel(const float* __restrict__ y, const int* __re
   }
 }
 
-template <int BITS, int MT, int NT, bool RT, int EPI, bool GATHER>
+template <int BITS, int MT, int NT, int EPI>
 void launch(const PassArgs& a, int S, int col_blocks, cudaStream_t st) {
-  qmoe_pass_kernel<BITS, MT, NT, RT, EPI, GATHER><<<dim3(col_blocks, S), kThreads, 0, st>>>(a);
+  qmoe_pass_kernel<BITS, MT, NT, EPI><<<dim3(col_blocks, S), kThreads, 0, st>>>(a);
 }
 
 // Tiles by bm: one 16-row tile (bm <= 16) with 8 columns, or two with 32
 // where N allows; the act pass always pairs 8 gate and 8 up columns.
-template <int BITS, bool RT, int EPI, bool GATHER>
+template <int BITS, int EPI>
 void pass(const PassArgs& a, int S, cudaStream_t st) {
   if constexpr (EPI == kActInner) {
-    if (a.bm <= 16) launch<BITS, 1, 2, RT, EPI, GATHER>(a, S, a.F / 8, st);
-    else launch<BITS, 2, 2, RT, EPI, GATHER>(a, S, a.F / 8, st);
-  } else if constexpr (EPI == kWeighted) {  // N = D, a multiple of 128
-    if (a.bm <= 16) launch<BITS, 1, 1, RT, EPI, GATHER>(a, S, a.N / 8, st);
-    else launch<BITS, 2, 4, RT, EPI, GATHER>(a, S, a.N / 32, st);
+    if (a.bm <= 16) launch<BITS, 1, 2, EPI>(a, S, a.F / 8, st);
+    else launch<BITS, 2, 2, EPI>(a, S, a.F / 8, st);
   } else {
-    if (a.bm <= 16) launch<BITS, 1, 1, RT, EPI, GATHER>(a, S, a.N / 8, st);
-    else if (a.N % 32 == 0) launch<BITS, 2, 4, RT, EPI, GATHER>(a, S, a.N / 32, st);
-    else launch<BITS, 2, 1, RT, EPI, GATHER>(a, S, a.N / 8, st);
+    if (a.bm <= 16) launch<BITS, 1, 1, EPI>(a, S, a.N / 8, st);
+    else if (a.N % 32 == 0) launch<BITS, 2, 4, EPI>(a, S, a.N / 32, st);
+    else launch<BITS, 2, 1, EPI>(a, S, a.N / 8, st);
   }
 }
 
-template <bool RT, int EPI, bool GATHER>
+template <int EPI>
 int pass_bits(int bits, const PassArgs& a, int S, cudaStream_t st) {
   switch (bits) {
-    case 2: pass<2, RT, EPI, GATHER>(a, S, st); break;
-    case 4: pass<4, RT, EPI, GATHER>(a, S, st); break;
-    case 8: pass<8, RT, EPI, GATHER>(a, S, st); break;
+    case 2: pass<2, EPI>(a, S, st); break;
+    case 4: pass<4, EPI>(a, S, st); break;
+    case 8: pass<8, EPI>(a, S, st); break;
     default: return -1;
   }
   return (int)cudaGetLastError();
@@ -358,19 +325,20 @@ using gqt::PassArgs;
 // CUDA error of its launches. The caller (ops/qmoe.py) checks the contract:
 // bf16 rows of K with 16-byte aligned rows, bm a multiple of 8 up to 32,
 // g % 128 == 0 and K % g == 0, N % 8 == 0, int32 plan arrays on the device,
-// S <= 65535; and allocates the outputs and scratch.
+// S <= 65535; for K10 also 16-byte aligned weights and scales (the ring
+// copies them in 16-byte pieces), D % 128 == 0 and the cluster splits of
+// its launch plan; and allocates the outputs and scratch.
 
 // K13: out [S*bm, N] (f32 or bf16) = each slot's rows x dequant(qw[ids[s]]).
 extern "C" int gqt_qmoe_matmul(const void* x, const void* ids, const void* counts, int S,
                                int bm, int K, int N, const void* qw, const void* sc, int Gp,
                                int g, float zc, int bits, int out_f32, void* out,
                                void* stream) {
-  PassArgs a{static_cast<const __nv_bfloat16*>(x), K, nullptr,
-             static_cast<const int*>(ids), static_cast<const int*>(counts), nullptr,
-             bm, K, N, static_cast<const uint32_t*>(qw),
-             static_cast<const __nv_bfloat16*>(sc), Gp, g, zc, nullptr, out, out_f32, 0};
-  return gqt::pass_bits<false, gqt::kStoreMasked, false>(bits, a, S,
-                                                         static_cast<cudaStream_t>(stream));
+  PassArgs a{static_cast<const __nv_bfloat16*>(x), K, static_cast<const int*>(ids),
+             static_cast<const int*>(counts), nullptr, bm, K, N,
+             static_cast<const uint32_t*>(qw), static_cast<const __nv_bfloat16*>(sc), Gp, g,
+             zc, out, out_f32, 0};
+  return gqt::pass_bits<gqt::kStoreMasked>(bits, a, S, static_cast<cudaStream_t>(stream));
 }
 
 // K11 (n_used given) and K12 (n_used NULL): the expert MLP per slot, the ic
@@ -384,51 +352,109 @@ extern "C" int gqt_qmoe_mlp(const void* x, const void* ids, const void* counts,
   const int* idp = static_cast<const int*>(ids);
   const int* cp = static_cast<const int*>(counts);
   const int* up = static_cast<const int*>(n_used);
-  PassArgs gu{static_cast<const __nv_bfloat16*>(x), D, nullptr, idp, cp, up, bm, D, 2 * F,
+  PassArgs gu{static_cast<const __nv_bfloat16*>(x), D, idp, cp, up, bm, D, 2 * F,
               static_cast<const uint32_t*>(qw_gu), static_cast<const __nv_bfloat16*>(s_gu),
-              Gp_gu, g, zc_gu, nullptr, inner, 0, F};
-  int rc = gqt::pass_bits<false, gqt::kActInner, false>(bits, gu, S, st);
+              Gp_gu, g, zc_gu, inner, 0, F};
+  int rc = gqt::pass_bits<gqt::kActInner>(bits, gu, S, st);
   if (rc != 0) return rc;
-  PassArgs dn{static_cast<const __nv_bfloat16*>(inner), F, nullptr, idp, cp, up, bm, F, D,
+  PassArgs dn{static_cast<const __nv_bfloat16*>(inner), F, idp, cp, up, bm, F, D,
               static_cast<const uint32_t*>(qw_d), static_cast<const __nv_bfloat16*>(s_d),
-              Gp_d, g, zc_d, nullptr, out, out_f32, 0};
-  return gqt::pass_bits<false, gqt::kStoreMasked, false>(bits, dn, S, st);
+              Gp_d, g, zc_d, out, out_f32, 0};
+  return gqt::pass_bits<gqt::kStoreMasked>(bits, dn, S, st);
 }
 
-template <bool RT_GU, bool RT_D>
-static int e2e_passes(int bits, const PassArgs& gu, const PassArgs& dn, int S,
-                      cudaStream_t st) {
-  int rc = gqt::pass_bits<RT_GU, gqt::kActInner, true>(bits, gu, S, st);
+namespace gqt {
+
+// K10's zeros of one pass: K1's arithmetic (rt) or each weight dequantized
+// before the mma (ic).
+template <bool RT>
+using E2eZeros = typename std::conditional<RT, UniformZero, DequantFirst<UniformZero>>::type;
+
+// K10's operands: x [N, D] bf16, the passes' plans, weights, groups, zero
+// points and cluster splits, and the scratch inner [S*bm, F], ybuf [S*bm, D].
+struct E2eArgs {
+  const void* x;
+  SlotPlan p_gu, p_d;
+  int S, bm, D, F;
+  const void *qw_gu, *s_gu, *qw_d, *s_d;
+  int g_gu, g_d;
+  float zc_gu, zc_d;
+  int split_gu, split_d;
+  void *inner, *ybuf;
+  cudaStream_t st;
+};
+
+template <int BITS, bool RT_GU, bool RT_D>
+int e2e_passes(const E2eArgs& a) {
+  MoeGateUp<E2eZeros<RT_GU>> gu{};
+  gu.zc = a.zc_gu;
+  gu.plan = a.p_gu;
+  MoeDown<E2eZeros<RT_D>> dn{};
+  dn.zc = a.zc_d;
+  dn.plan = a.p_d;
+  const int rc = launch_moe_pass<BITS>(a.x, a.bm, a.D, a.qw_gu, a.s_gu, 2 * a.F, a.g_gu, gu,
+                                       a.split_gu, a.S, a.inner, a.st);
   if (rc != 0) return rc;
-  return gqt::pass_bits<RT_D, gqt::kWeighted, false>(bits, dn, S, st);
+  return launch_moe_pass<BITS>(a.inner, a.bm, a.F, a.qw_d, a.s_d, a.D, a.g_d, dn, a.split_d,
+                               a.S, a.ybuf, a.st);
 }
+
+template <int BITS>
+int e2e_bits(int rt_gu, int rt_d, const E2eArgs& a) {
+  if (rt_gu) return rt_d ? e2e_passes<BITS, true, true>(a) : e2e_passes<BITS, true, false>(a);
+  return rt_d ? e2e_passes<BITS, false, true>(a) : e2e_passes<BITS, false, false>(a);
+}
+
+}  // namespace gqt
 
 // K10: out [N, D] (f32 or bf16) = per token, the sum in slot order of
 // w * expert_mlp(x[token]) over its slot rows; inner [S*bm, F] bf16 and
 // ybuf [S*bm, D] f32 are scratch. tok/w [S*bm] per slot row, tok_pos [N, topk].
+// Both passes run the decode ring with the launch plan's cluster splits
+// (ops/qmoe.py, e2e_plan), then the combine. Also -1, before any launch,
+// for a split outside 1 .. min(8, K / g) of either pass.
 extern "C" int gqt_qmoe_e2e(const void* x, const void* ids, const void* n_used,
                             const void* tok, const void* w, const void* tok_pos, int S, int bm,
                             int N, int topk, int D, int F, const void* qw_gu, const void* s_gu,
                             int Gp_gu, const void* qw_d, const void* s_d, int Gp_d, int g_gu,
                             int g_d, float zc_gu, float zc_d, int rt_gu, int rt_d, int bits,
-                            int out_f32, void* inner, void* ybuf, void* out, void* stream) {
-  if (topk < 1 || topk > gqt::kMaxTopk || D % 128) return -1;
+                            int split_gu, int split_d, int out_f32, void* inner, void* ybuf,
+                            void* out, void* stream) {
+  // both splits before either pass launches
+  const auto split_ok = [](int split, int K, int g) {
+    return split >= 1 && split <= gqt::kDecodeMaxSplit && split <= K / g;
+  };
+  if (topk < 1 || topk > gqt::kMaxTopk || D % 128 || !split_ok(split_gu, D, g_gu) ||
+      !split_ok(split_d, F, g_d))
+    return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* idp = static_cast<const int*>(ids);
   const int* up = static_cast<const int*>(n_used);
-  PassArgs gu{static_cast<const __nv_bfloat16*>(x), D, static_cast<const int*>(tok), idp,
-              nullptr, up, bm, D, 2 * F, static_cast<const uint32_t*>(qw_gu),
-              static_cast<const __nv_bfloat16*>(s_gu), Gp_gu, g_gu, zc_gu, nullptr, inner, 0, F};
-  PassArgs dn{static_cast<const __nv_bfloat16*>(inner), F, nullptr, idp, nullptr, up, bm, F, D,
-              static_cast<const uint32_t*>(qw_d), static_cast<const __nv_bfloat16*>(s_d),
-              Gp_d, g_d, zc_d, static_cast<const float*>(w), ybuf, 1, 0};
-  int rc = rt_gu ? (rt_d ? e2e_passes<true, true>(bits, gu, dn, S, st)
-                         : e2e_passes<true, false>(bits, gu, dn, S, st))
-                 : (rt_d ? e2e_passes<false, true>(bits, gu, dn, S, st)
-                         : e2e_passes<false, false>(bits, gu, dn, S, st));
+  const gqt::E2eArgs a{x, {idp, up, static_cast<const int*>(tok), nullptr, Gp_gu},
+                       {idp, up, nullptr, static_cast<const float*>(w), Gp_d},
+                       S, bm, D, F, qw_gu, s_gu, qw_d, s_d, g_gu, g_d, zc_gu, zc_d,
+                       split_gu, split_d, inner, ybuf, st};
+  int rc;
+  switch (bits) {
+    case 2: rc = gqt::e2e_bits<2>(rt_gu, rt_d, a); break;
+    case 4: rc = gqt::e2e_bits<4>(rt_gu, rt_d, a); break;
+    case 8: rc = gqt::e2e_bits<8>(rt_gu, rt_d, a); break;
+    default: return -1;
+  }
   if (rc != 0) return rc;
-  gqt::qmoe_combine_kernel<<<N, 128, 0, st>>>(static_cast<const float*>(ybuf),
-                                              static_cast<const int*>(tok_pos), topk, D,
-                                              out_f32, out);
+  gqt::qmoe_combine_kernel<<<dim3(N, (D + 511) / 512), 128, 0, st>>>(
+      static_cast<const float*>(ybuf), static_cast<const int*>(tok_pos), topk, D, out_f32, out);
   return (int)cudaGetLastError();
+}
+
+// The dynamic shared memory of a K10 pass's block at bm rows a slot (its
+// ring), or -1 for unsupported bits or bm.
+extern "C" int gqt_qmoe_smem_bytes(int bits, int bm) {
+  if (bm < 8 || bm > gqt::kDecodeMoeMaxM || bm % 8) return -1;
+  switch (bits) {
+    case 2: return gqt::DecodeShape<2>::smem_bytes(bm);
+    case 4: return gqt::DecodeShape<4>::smem_bytes(bm);
+    case 8: return gqt::DecodeShape<8>::smem_bytes(bm);
+    default: return -1;
+  }
 }

@@ -292,7 +292,7 @@ def _moe_ragged_apply_q(spec: ModelSpec, sq: dict, x, top_w, top_i):
         bits=gu.bits, D=gu.in_features, F=gu.out_features // 2, G_gu=gu.G, G_d=down.G,
         act=spec.hidden_act)
     if fused_ok and _env_on("GPTQ_TPU_QMOE_E2E") and _env_on("GPTQ_TPU_QMOE_FUSED"):
-        bm = 8 if M <= 128 else (16 if M <= 1024 else 32)  # rows per slot by routed rows
+        bm = qmoe.slot_rows(M)
         qmoe_kernel_check(x, gu, down)
         ids, counts, row_pos = qmoe.plan_rows(flat_e, E, bm, qmoe.slot_bound(M, E, bm))
         return qmoe.qmoe_mlp_forward_e2e(x, row_pos.reshape(N, k), top_w, ids, counts,

@@ -142,8 +142,10 @@ def lib() -> ctypes.CDLL:
                                             + [i, i, vp, vp, vp])
             handle.gqt_qmoe_mlp.restype = i
             handle.gqt_qmoe_e2e.argtypes = ([vp] * 6 + [i] * 6 + [vp, vp, i, vp, vp, i, i, i]
-                                            + [f, f] + [i] * 4 + [vp] * 4)
+                                            + [f, f] + [i] * 6 + [vp] * 4)
             handle.gqt_qmoe_e2e.restype = i
+            handle.gqt_qmoe_smem_bytes.argtypes = [i, i]
+            handle.gqt_qmoe_smem_bytes.restype = i
             _lib = handle
         return _lib
 

@@ -20,7 +20,10 @@ Kernels (``csrc/qmoe.cu``), each with its plain PyTorch version here:
 - K10 ``qmoe_mlp_e2e``: the whole layer after routing: gathers each slot's
   token rows, runs the expert MLP and adds ``w·y`` into each token's row in
   float32, in slot order (ascending expert id), then rounds once
-  (``_qmoe_mlp_e2e_kernel``, ``:678``).
+  (``_qmoe_mlp_e2e_kernel``, ``:678``). Its gate|up and down passes run the
+  decode kernel's shared-memory ring (``csrc/qmm_decode.cuh``), one block
+  per slot, 64-column tile and cluster rank, with the cluster splits of
+  ``e2e_plan``; its combine is ``qmoe.cu``'s.
 
 Two contracts, as in the JAX package. The *ic* contract (``_ic_contract``,
 ``:90``) dequantizes each weight to ``bf16((q - zc)·s)`` and takes a bf16
@@ -51,9 +54,24 @@ import torch.nn.functional as F_
 from gptqmodel_tpu_torch.ops import _build
 from gptqmodel_tpu_torch.ops.pack import unpack_qweight
 from gptqmodel_tpu_torch.ops.qlinear import QuantLinear
+from gptqmodel_tpu_torch.ops.qmatmul import (
+    DECODE_COLS,
+    DECODE_PLAN_SPLIT,
+    H100_SMS,
+    DecodePlan,
+    _sm_count,
+)
 
 KERNEL_BITS = (2, 4, 8)
 MAX_TOPK = 16  # K10's combine keeps a token's slot rows in registers
+# K10's passes on the decode ring (e2e_plan): the blocks an SM that the
+# launch plan aims at, counting the slots that can hold rows, and the fewest
+# groups a cluster rank sums. On an H100 at Qwen3-30B-A3B's widths and N = 1
+# (scripts/k10_passes.py --splits, PERF.md) gate|up ran fastest at a split of
+# 2 (16 groups) and down at 1 (6 groups): a rank of one or two groups ends
+# before its ring fills.
+E2E_BLOCKS_PER_SM = 2
+E2E_GROUPS_PER_RANK = 4
 _PLAIN_SLOTS = 16  # slots per step of the plain versions (bounds their memory)
 
 
@@ -186,6 +204,11 @@ def build_slots(top_i: np.ndarray, E: int, bm: int, max_slots: int):
         ids.append(pad_e)
         counts.append(0)
     return pos, np.asarray(ids, np.int32), np.asarray(counts, np.int32), order
+
+
+def slot_rows(M: int) -> int:
+    """K10's rows a slot (bm) for ``M`` routed rows, as the model picks it."""
+    return 8 if M <= 128 else (16 if M <= 1024 else 32)
 
 
 def slot_bound(M: int, E: int, bm: int) -> int:
@@ -366,6 +389,24 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def e2e_plan(M: int, E: int, K: int, N: int, group_size: int,
+             sms: int = H100_SMS) -> DecodePlan:
+    """The launch of one of K10's passes on the decode ring (``K x N``:
+    gate|up ``D x 2F``, 32 gate and their 32 up columns a tile; down ``F x
+    D``) for ``M`` routed rows over ``E`` experts: the fewest cluster blocks
+    (at most ``DECODE_PLAN_SPLIT``, and ``E2E_GROUPS_PER_RANK`` groups or
+    more a rank) that give the ``min(E, M)`` slots that can hold rows
+    ``E2E_BLOCKS_PER_SM`` blocks an SM. The slots' row count ``bm`` is not an
+    input: the plan, and with it every row's sums, is the same for every
+    ``bm``."""
+    tiles = -(-N // DECODE_COLS)
+    groups = K // group_size
+    busy = tiles * min(E, M)
+    split = max(1, min(DECODE_PLAN_SPLIT, groups // E2E_GROUPS_PER_RANK,
+                       -(-E2E_BLOCKS_PER_SM * sms // busy)))
+    return DecodePlan(tiles, split, groups)
+
+
 def _check(x, K, ids, counts, stacks, *, bm, n_used=None):
     """The kernels' contract on the operands; raises on what they do not take."""
     if x.dtype != torch.bfloat16 or x.dim() != 2 or x.shape[1] != K:
@@ -506,18 +547,25 @@ def qmoe_mlp_e2e(x, expert_ids, n_used, tok_col, w_col, tok_pos, qw_gu, s_gu, qw
     for t in (tok_col, w_col, tok_pos):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError("K10's plan tensors must be contiguous and on x's device")
-    inner = torch.empty((S * bm, F), dtype=torch.bfloat16, device=x.device)
-    ybuf = torch.empty((S * bm, D), dtype=torch.float32, device=x.device)
+    if any(t.data_ptr() % 16 for t in (qw_gu, s_gu, qw_d, s_d)):
+        raise ValueError("K10 copies weights and scales in 16-byte pieces: both stacks' "
+                         "qweight and scales must be 16-byte aligned")
     out = torch.empty((N, D), dtype=out_dtype, device=x.device)
     if N == 0:
         return out
-    rc = _build.lib().gqt_qmoe_e2e(
+    lib = _build.lib()
+    E, sms = qw_gu.shape[0], _sm_count(x.device.index or 0)
+    plan_gu = e2e_plan(N * topk, E, D, 2 * F, D // G_gu, sms)
+    plan_d = e2e_plan(N * topk, E, F, D, F // G_d, sms)
+    inner = torch.empty((S * bm, F), dtype=torch.bfloat16, device=x.device)
+    ybuf = torch.empty((S * bm, D), dtype=torch.float32, device=x.device)
+    rc = lib.gqt_qmoe_e2e(
         x.data_ptr(), expert_ids.data_ptr(), n_used.data_ptr(), tok_col.data_ptr(),
         w_col.data_ptr(), tok_pos.data_ptr(), S, bm, N, topk, D, F,
         qw_gu.data_ptr(), s_gu.data_ptr(), s_gu.shape[1], qw_d.data_ptr(), s_d.data_ptr(),
         s_d.shape[1], D // G_gu, F // G_d, float(zc_gu), float(zc_d), int(rt_gu), int(rt_d),
-        bits, int(out_dtype == torch.float32), inner.data_ptr(), ybuf.data_ptr(),
-        out.data_ptr(), _stream(x))
+        bits, plan_gu.split, plan_d.split, int(out_dtype == torch.float32), inner.data_ptr(),
+        ybuf.data_ptr(), out.data_ptr(), _stream(x))
     _build.check(rc, "qmoe_e2e")
     _build.LAUNCHES["qmoe_e2e"] += 1
     return out

@@ -1,0 +1,131 @@
+#!/usr/bin/env python3
+"""Time K10 (``qmoe_mlp_e2e``) pass by pass, as one or more checkouts build it.
+
+    python3 scripts/k10_passes.py [--splits] CHECKOUT [CHECKOUT ...]
+
+For each checkout in the order given (say ``build/parent . . build/parent``,
+so that both versions meet the card's drift alike), a fresh process with that
+checkout's package first on ``sys.path`` builds its kernels into its own
+``build/`` and runs its ``qmoe_mlp_e2e`` on the K10 inputs of this
+checkout's ``chip_smoke.py`` (``k10_inputs``: Qwen3-30B-A3B's stacks and
+routes from one seed, N = 1, 8 and 1024 tokens, the stacks rotated through
+copies past the L2), the rt contract at every N and the ic one at N = 8.
+Each case is timed by ``chip_smoke.timed`` and its device time split into the
+gate|up pass, the down pass and the combine by kernel name; beside it the
+byte bound. ``--splits`` also times other cluster splits than the plan's
+(``qmoe.e2e_plan`` replaced). One JSON line per case on stdout, all of them
+also in ``chiprun_out/k10_passes.jsonl``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib.util
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+RT_ONLY_NS = (1, 1024)  # the ic contract is timed at N = 8 only
+SPLITS = {1: ((1, 1), (2, 2), (3, 3), (4, 3), (6, 6)), 8: ((1, 1), (2, 2))}
+
+
+def chip_smoke():
+    """This checkout's ``chip_smoke.py``, whichever checkout is timed."""
+    spec = importlib.util.spec_from_file_location("k10_chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def pass_of(cs, name: str) -> str:
+    """``chip_smoke.k10_pass``; a checkout from before K10 ran on the decode
+    ring names its passes by ``qmoe_pass_kernel``'s last two template
+    arguments: epilogue 1 with the row gather (gate|up), 2 without (down)."""
+    p = cs.k10_pass(name)
+    if p != "qmoe_pass_kernel":
+        return p
+    last = name.split("<", 1)[1].split(">", 1)[0].replace(" ", "").split(",")[-2:]
+    return {("1", "true"): "gate_up", ("2", "false"): "down"}.get(tuple(last), p)
+
+
+def worker(splits: bool, bms: dict) -> None:
+    import torch
+
+    cs = chip_smoke()
+    from gptqmodel_tpu_torch.ops import qmoe
+
+    gu, dn, router, g = cs.moe_stacks(torch.device("cuda"), cs.SEED + 300)
+    D, F = gu.in_features, gu.out_features // 2
+    for c in cs.k10_inputs(gu, dn, router, g, lambda M: bms[str(M)]):
+        N, x, ids, ops_, sets = c["N"], c["x"], c["ids"], c["ops"], c["sets"]
+        b_ms, _ = cs.bound(c["n_bytes"], 2.0 * c["M"] * 3 * D * F)
+        for rt in (True,) if N in RT_ONLY_NS else (True, False):
+            kw = c["kw"](rt)
+            run = lambda i, kw=kw: qmoe.qmoe_mlp_e2e(x, ids, *ops_, *sets[i], **kw)
+            forced_splits = SPLITS.get(N, ()) if splits and hasattr(qmoe, "e2e_plan") else ()
+            for forced in (None, *forced_splits):
+                plan = getattr(qmoe, "e2e_plan", None)
+                if forced is not None:
+                    qmoe.e2e_plan = lambda M_, E_, K, Nn, gs, sms=132, f=forced: (
+                        dataclasses.replace(plan(M_, E_, K, Nn, gs, sms),
+                                            split=f[0] if K == D else f[1]))
+                try:
+                    k = cs.timed(run, len(sets), floor_ms=b_ms)
+                finally:
+                    if forced is not None:
+                        qmoe.e2e_plan = plan
+                ms = {}
+                for name, t in k["rows"]:
+                    ms[pass_of(cs, name)] = ms.get(pass_of(cs, name), 0.0) + t
+                rec = {"checkout": str(Path.cwd()), "N": N, "M": c["M"], "bm": c["bm"],
+                       "rt": rt, "distinct_experts": c["distinct"], "copies": len(sets),
+                       "forced_splits": forced, "ms": k["ms"], "ms_by_pass": ms,
+                       "bound_ms": b_ms, "kernels": k["kernels"]}
+                if plan is not None and forced is None:
+                    rec["plan_splits"] = [plan(c["M"], gu.qweight.shape[0], D, 2 * F, 128).split,
+                                          plan(c["M"], gu.qweight.shape[0], F, D, 128).split]
+                print(json.dumps(rec), flush=True)
+        del c, sets
+
+
+def main() -> int:
+    args = sys.argv[1:]
+    if args and args[0] == "--worker":
+        sys.path.insert(0, str(Path.cwd()))
+        worker(splits=args[1] == "1", bms=json.loads(args[2]))
+        return 0
+    splits = "--splits" in args
+    checkouts = [a for a in args if a != "--splits"]
+    if not checkouts:
+        print(__doc__, file=sys.stderr)
+        return 2
+    # rows a slot as this checkout's model picks them, for every checkout
+    sys.path.insert(0, str(ROOT))
+    from gptqmodel_tpu_torch.ops.qmoe import slot_rows
+    from gptqmodel_tpu_torch.utils.testing import QWEN3_30B_A3B_CONFIG as C
+
+    cs = chip_smoke()
+    bms = {str(M): slot_rows(M)
+           for M in (N * C["num_experts_per_tok"] for N in cs.MOE_E2E_NS)}
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    rc = 0
+    with open(out / "k10_passes.jsonl", "a") as log:
+        for co in checkouts:
+            res = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--worker",
+                                  "1" if splits else "0", json.dumps(bms)],
+                                 cwd=Path(co).resolve(), capture_output=True, text=True)
+            for line in res.stdout.splitlines():
+                if line.startswith("{"):
+                    print(line, flush=True)
+                    log.write(line + "\n")
+            if res.returncode:
+                print(f"k10_passes: {co} failed:\n{res.stderr[-4000:]}", file=sys.stderr)
+                rc = 1
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -23,6 +23,7 @@ from gptqmodel_tpu_torch.ops.gptq_solve import (
     gptq_whole_solve,
     gptq_whole_solve_plain,
 )
+from gptqmodel_tpu_torch.ops.pack import pack_qweight
 from gptqmodel_tpu_torch.ops.qlinear import qlinear_forward_torch
 from gptqmodel_tpu_torch.ops.qmatmul import (
     qmatmul,
@@ -839,20 +840,26 @@ def _e2e(x, top_w, top_i, gu, down, bm, fn=qmoe.qmoe_mlp_e2e):
               zc_d=down.zero_const, rt_gu=gu.rt, rt_d=down.rt)
 
 
+# (N, k, bm): decode at 8 rows a slot (N = 1 and 8), the same rows at 16, 40
+# tokens at 24 and 300 at 32: one n-tile of the ring per 8 rows of a slot
+E2E_CASES = [(1, 8, 8), (8, 8, 8), (8, 8, 16), (40, 4, 24), (300, 4, 32)]
+# (rt_gu, rt_d): every pair of contracts K10's C entry takes
+E2E_CONTRACTS = [(True, True), (False, False), (True, False), (False, True)]
+
+
 @pytest.mark.parametrize("bits", [2, 4, 8])
-@pytest.mark.parametrize("rt", [True, False])
-@pytest.mark.parametrize("N,k", [(1, 8), (8, 8), (300, 4)])
-def test_qmoe_e2e_kernel_matches_plain(cuda_device, bits, rt, N, k):
+@pytest.mark.parametrize("rt", E2E_CONTRACTS)
+@pytest.mark.parametrize("N,k,bm", E2E_CASES)
+def test_qmoe_e2e_kernel_matches_plain(cuda_device, bits, rt, N, k, bm):
     """K10 against its plain version: the same exact products in both
     contracts, f32 sums in another order, inner rounded to bf16 in both:
     2e-3 relative in norm. Two runs give the same bits."""
-    rng = np.random.default_rng(bits * 10 + N + k)
+    rng = np.random.default_rng([bits, N, k, bm, *rt])
     E, D, F = 16, 512, 256
     gu, down = _stacks(rng, E, D, F, bits, cuda_device)
-    gu, down = (dataclasses.replace(s, rt=rt) for s in (gu, down))
+    gu, down = dataclasses.replace(gu, rt=rt[0]), dataclasses.replace(down, rt=rt[1])
     x = _x(rng, N, D, cuda_device)
     top_w, top_i = _routes(rng, N, E, k, cuda_device)
-    bm = _bm(N * k)
     before = _build.LAUNCHES["qmoe_e2e"]
     y = _e2e(x, top_w, top_i, gu, down, bm)
     ref = _e2e(x, top_w, top_i, gu, down, bm, qmoe.qmoe_mlp_e2e_plain)
@@ -861,6 +868,152 @@ def test_qmoe_e2e_kernel_matches_plain(cuda_device, bits, rt, N, k):
     assert y.dtype == torch.bfloat16 and y.shape == (N, D)
     assert _rel(y, ref) <= 2e-3
     assert torch.equal(y, _e2e(x, top_w, top_i, gu, down, bm))
+
+
+# routes that the slot plan meets at its edges: one token with one route (a
+# slot of one row and bm - 1 padding rows, tok -1 and w 0), every token on
+# one expert (whole slots, the last one part-filled), and the stack's last
+# expert beside others
+EDGE_ROUTES = {"one_row_slot": lambda rng, E: np.array([[3]]),
+               "one_expert": lambda rng, E: np.full((40, 1), 5),
+               "last_expert": lambda rng, E: np.stack(
+                   [np.full(12, E - 1), rng.integers(0, E - 1, 12)], 1)}
+
+
+@pytest.mark.parametrize("bm", [8, 32])
+@pytest.mark.parametrize("rt", [True, False])
+@pytest.mark.parametrize("case", list(EDGE_ROUTES))
+def test_qmoe_e2e_edge_routes_match_plain(cuda_device, case, rt, bm):
+    rng = np.random.default_rng([bm, int(rt), len(case)])
+    E, D, F = 16, 512, 256
+    gu, down = _stacks(rng, E, D, F, 4, cuda_device)
+    gu, down = dataclasses.replace(gu, rt=rt), dataclasses.replace(down, rt=rt)
+    top_i = torch.from_numpy(EDGE_ROUTES[case](rng, E)).to(cuda_device)
+    N, k = top_i.shape
+    top_w = torch.full((N, k), 1.0 / k, device=cuda_device)
+    x = _x(rng, N, D, cuda_device)
+    y = _e2e(x, top_w, top_i, gu, down, bm)
+    ref = _e2e(x, top_w, top_i, gu, down, bm, qmoe.qmoe_mlp_e2e_plain)
+    assert torch.isfinite(y).all() and _rel(y, ref) <= 2e-3
+    assert torch.equal(y, _e2e(x, top_w, top_i, gu, down, bm))
+
+
+def _stack_of(codes, scales, bits, zc):
+    """A stack from integer codes [E, K, N] and float32 scales [E, G, N]
+    (the groups padded to 8, bf16), symmetric, ic contract."""
+    E, K, N = codes.shape
+    G = scales.shape[1]
+    qw = torch.stack([pack_qweight(torch.from_numpy(c.astype(np.int32)), bits) for c in codes])
+    sc = torch.zeros((E, max(8, G), N), dtype=torch.float32)
+    sc[:, :G] = torch.from_numpy(scales)
+    return qmoe.StackedQuantExperts(qweight=qw, scales=sc.to(torch.bfloat16), bits=bits, G=G,
+                                    zero_const=float(zc), in_features=K, out_features=N)
+
+
+@pytest.mark.parametrize("bm", [8, 32])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_qmoe_e2e_ic_dequantizes_to_bf16_of_q_minus_zc_times_s(cuda_device, bits, bm):
+    """The ic contract on the ring is K6's dequantization, bf16(bf16(c - zc)
+    * s): for bf16 scales it is bf16((q - zc) * s) bit for bit. Each token's
+    x is one-hot, so gate|up read one weight row; gate codes above zc and
+    scales of 20-40 make silu(g) = g in f32; up codes are zc but in one
+    column, so inner is one-hot and y is one product of two bf16 values. No
+    sum rounds, and the float32 output must equal the formula's bits."""
+    rng = np.random.default_rng([bits, bm, 77])
+    E, D, F, N = 4, 256, 128, 6
+    zc, maxq = 2 ** (bits - 1), 2 ** bits - 1
+    qg = rng.integers(zc + 1, maxq + 1, (E, D, F))
+    qu = np.full((E, D, F), zc)
+    f0 = rng.integers(0, F, E)
+    others = np.array([c for c in range(maxq + 1) if c != zc])
+    qu[np.arange(E), :, f0] = rng.choice(others, (E, D))
+    qd = rng.integers(0, maxq + 1, (E, F, D))
+    bf = lambda a: torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16).float().numpy()
+    sg, su = bf(rng.uniform(20, 40, (E, D // 128, F))), bf(rng.uniform(0.5, 2, (E, D // 128, F)))
+    sd = bf(rng.uniform(0.01, 0.1, (E, 1, D)))
+    gu = _stack_of(np.concatenate([qg, qu], 2), np.concatenate([sg, su], 2), bits, zc)
+    down = _stack_of(qd, sd, bits, zc)
+    gu, down = (dataclasses.replace(s, qweight=s.qweight.to(cuda_device),
+                                    scales=s.scales.to(cuda_device)) for s in (gu, down))
+    e, kk = rng.integers(0, E, N), rng.choice(D, N, replace=False)
+    x = torch.zeros((N, D), dtype=torch.bfloat16, device=cuda_device)
+    x[torch.arange(N), torch.from_numpy(kk)] = 1.0
+    top_i = torch.from_numpy(e[:, None]).to(cuda_device)
+    top_w = torch.ones((N, 1), device=cuda_device)
+    ids, counts, row_pos = qmoe.plan_rows(top_i.reshape(-1), E, bm, qmoe.slot_bound(N, E, bm))
+    ops = qmoe.e2e_operands(row_pos.reshape(N, 1), top_w, counts, bm)
+    y = qmoe.qmoe_mlp_e2e(x, ids, *ops, gu.qweight, gu.scales, down.qweight, down.scales,
+                          bits=bits, G_gu=gu.G, G_d=down.G, F=F, bm=bm, zc_gu=zc, zc_d=zc,
+                          rt_gu=False, rt_d=False, out_dtype=torch.float32)
+    rnd = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16).float()
+    g = rnd((qg[e, kk, f0[e]] - zc) * sg[e, kk // 128, f0[e]])
+    u = rnd((qu[e, kk, f0[e]] - zc) * su[e, kk // 128, f0[e]])
+    inner = rnd((g * u).numpy())
+    w_d = rnd((qd[e, f0[e], :] - zc) * sd[e, 0, :])
+    assert (g >= 20).all()
+    assert torch.equal(y.cpu(), inner[:, None] * w_d)
+
+
+def _kernel_names(run, calls: int = 4) -> set:
+    """The CUDA kernels the profiler saw in ``calls`` calls of ``run``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+@pytest.mark.parametrize("rt", [True, False])
+@pytest.mark.parametrize("N,bm", [(8, 8), (300, 32)])
+def test_qmoe_e2e_runs_only_the_ring_and_the_combine(cuda_device, rt, N, bm):
+    """By the profiler's kernel names, a K10 call runs its gate|up pass and
+    its down pass on the decode ring (``qmm_decode_kernel`` with
+    ``MoeGateUp`` and ``MoeDown``) and the combine, and nothing else."""
+    rng = np.random.default_rng([N, bm, int(rt)])
+    E, D, F, k = 16, 512, 256, 8
+    gu, down = _stacks(rng, E, D, F, 4, cuda_device)
+    gu, down = dataclasses.replace(gu, rt=rt), dataclasses.replace(down, rt=rt)
+    x = _x(rng, N, D, cuda_device)
+    top_w, top_i = _routes(rng, N, E, k, cuda_device)
+    ids, counts, row_pos = qmoe.plan_rows(top_i.reshape(-1), E, bm,
+                                          qmoe.slot_bound(N * k, E, bm))
+    ops = qmoe.e2e_operands(row_pos.reshape(N, k), top_w, counts, bm)
+    run = lambda: qmoe.qmoe_mlp_e2e(
+        x, ids, *ops, gu.qweight, gu.scales, down.qweight, down.scales, bits=4, G_gu=gu.G,
+        G_d=down.G, F=F, bm=bm, zc_gu=gu.zero_const, zc_d=down.zero_const, rt_gu=rt, rt_d=rt)
+    run()
+    names = _kernel_names(run)
+    ring = lambda z: [n for n in names if "qmm_decode_kernel<" in n and z in n]
+    assert len(ring("MoeGateUp")) == len(ring("MoeDown")) == 1
+    assert [n for n in names if "qmoe_combine_kernel" in n]
+    assert len(names) == 3, names
+
+
+def test_qmoe_e2e_refuses_a_split_or_pointers_it_does_not_take(cuda_device, monkeypatch):
+    """K10's C entry refuses a cluster split outside 1 .. min(8, K / g) of
+    either pass (down: F = 256 is 2 groups); an unaligned qweight or scales
+    raises before the launch."""
+    rng = np.random.default_rng(45)
+    E, D, F, N, k = 16, 512, 256, 8, 8
+    gu, down = _stacks(rng, E, D, F, 4, cuda_device)
+    x = _x(rng, N, D, cuda_device)
+    top_w, top_i = _routes(rng, N, E, k, cuda_device)
+    plan = qmoe.e2e_plan
+    for split in (0, 3, 9):
+        monkeypatch.setattr(qmoe, "e2e_plan",
+                            lambda *a, s=split: dataclasses.replace(plan(*a), split=s))
+        with pytest.raises(ValueError, match="unsupported"):
+            _e2e(x, top_w, top_i, gu, down, 8)
+    monkeypatch.undo()
+    for bad in (dataclasses.replace(gu, qweight=_unaligned(gu.qweight)),
+                dataclasses.replace(gu, scales=_unaligned(gu.scales))):
+        with pytest.raises(ValueError, match="aligned"):
+            _e2e(x, top_w, top_i, bad, down, 8)
+    with pytest.raises(ValueError, match="aligned"):
+        _e2e(x, top_w, top_i, gu, dataclasses.replace(down, scales=_unaligned(down.scales)), 8)
 
 
 def test_qmoe_e2e_rows_do_not_depend_on_bm(cuda_device):

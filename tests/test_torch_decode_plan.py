@@ -1,7 +1,8 @@
 """The launch plan of the decode kernel of K1, K3, K6, K7 and K2
-(``ops/qmatmul.py``, ``decode_plan``), which the wrappers hand to the C
-entries: invariants over shapes inside the kernels' contract, and the split
-it gives each of Llama-3-8B's and Qwen3-30B-A3B's projections on an H100.
+(``ops/qmatmul.py``, ``decode_plan``) and of K10's passes (``ops/qmoe.py``,
+``e2e_plan``), which the wrappers hand to the C entries: invariants over
+shapes inside the kernels' contract, and the split it gives each of
+Llama-3-8B's and Qwen3-30B-A3B's projections and MoE passes on an H100.
 K6's small groups split K in 128-row chunks, and its shapes outside the
 decode contract take the register tile by the plan's rule
 (``qmm_decode_supported``). The kernel sizes its own shared memory;
@@ -16,7 +17,7 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
-from gptqmodel_tpu_torch.ops import _build
+from gptqmodel_tpu_torch.ops import _build, qmoe
 from gptqmodel_tpu_torch.ops import qmatmul as qmatmul_mod
 from gptqmodel_tpu_torch.ops.qmatmul import (
     DECODE_CHUNK,
@@ -252,3 +253,121 @@ def test_k6_rings_fit_a_block():
         assert resident >= decode_blocks_per_sm(M)
         if M == 8:
             assert resident == 5
+
+
+# ------------------------------------------------- K10 (qmoe_mlp_e2e)
+
+# Qwen3-30B-A3B's MoE layer: hidden 2048, moe_intermediate 768, 128 experts,
+# top-8, group 128
+QWEN3_MOE = {"D": 2048, "F": 768, "E": 128, "k": 8}
+K10_BMS = (8, 16, 24, 32)
+
+
+def _k10_splits(monkeypatch, N, bm):
+    """The (gate|up, down) cluster splits that ``qmoe_mlp_e2e`` hands K10's C
+    entry for N tokens of Qwen3-30B-A3B at bm rows a slot (meta tensors, a
+    stand-in library)."""
+    calls = []
+
+    def gqt_qmoe_e2e(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(_build, "lib", lambda: SimpleNamespace(gqt_qmoe_e2e=gqt_qmoe_e2e))
+    monkeypatch.setattr(qmoe, "_sm_count", lambda index: H100_SMS)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: SimpleNamespace(cuda_stream=0))
+    monkeypatch.setitem(_build.LAUNCHES, "qmoe_e2e", 0)
+    D, F, E, k = (QWEN3_MOE[n] for n in "DFEk")
+    S = qmoe.slot_bound(N * k, E, bm)
+    meta = lambda shape, dtype: torch.empty(shape, dtype=dtype, device="meta")
+    i32, bf16 = torch.int32, torch.bfloat16
+    y = qmoe.qmoe_mlp_e2e(
+        meta((N, D), bf16), meta((S,), i32), meta((1,), i32), meta((S * bm,), i32),
+        meta((S * bm,), torch.float32), meta((N, k), i32), meta((E, D // 8, 2 * F), i32),
+        meta((E, D // 128, 2 * F), bf16), meta((E, F // 8, D), i32),
+        meta((E, 8, D), bf16), bits=4, G_gu=D // 128, G_d=F // 128, F=F, bm=bm, zc_gu=8.0,
+        zc_d=8.0, rt_gu=True, rt_d=True)
+    assert y.shape == (N, D) and _build.LAUNCHES["qmoe_e2e"] == 1 and len(calls) == 1
+    return calls[0][25], calls[0][26]
+
+
+@pytest.mark.parametrize("N", [1, 8, 1024])
+def test_k10_plan_does_not_depend_on_bm(monkeypatch, N):
+    """At decode (N = 1, 8) and at the prefill of 1024 tokens, the wrapper
+    hands K10's C entry the same splits at every bm, those of ``e2e_plan``
+    for the routed rows: a row's sums then do not depend on bm."""
+    D, F, E, k = (QWEN3_MOE[n] for n in "DFEk")
+    want = (qmoe.e2e_plan(N * k, E, D, 2 * F, 128).split,
+            qmoe.e2e_plan(N * k, E, F, D, 128).split)
+    assert [_k10_splits(monkeypatch, N, bm) for bm in K10_BMS] == [want] * len(K10_BMS)
+
+
+# the splits of K10's passes at Qwen3-30B-A3B's widths: (gate|up, down)
+K10_SPLITS = {1: (2, 1), 8: (1, 1), 1024: (1, 1)}
+
+
+@pytest.mark.parametrize("N", list(K10_SPLITS))
+@pytest.mark.parametrize("pass_", ["gate_up", "down"])
+def test_k10_plan_fills_the_card(N, pass_):
+    """Counting the min(E, M) slots that can hold rows, each pass launches
+    at least ``E2E_BLOCKS_PER_SM`` blocks an SM with the fewest cluster
+    blocks that do, unless a rank would get fewer than
+    ``E2E_GROUPS_PER_RANK`` groups. At N = 1 (8 routed rows) gate|up (16
+    groups) splits K in 2, and down (6 groups) not at all; from N = 8 on one
+    block a (slot, tile) is already more than the card holds at once."""
+    D, F, E, k = (QWEN3_MOE[n] for n in "DFEk")
+    K, Nout = (D, 2 * F) if pass_ == "gate_up" else (F, D)
+    M = N * k
+    plan = qmoe.e2e_plan(M, E, K, Nout, 128)
+    busy = plan.tiles * min(E, M)
+    want = qmoe.E2E_BLOCKS_PER_SM * H100_SMS
+    cap = max(1, min(DECODE_PLAN_SPLIT, plan.groups // qmoe.E2E_GROUPS_PER_RANK))
+    assert plan.tiles == Nout // DECODE_COLS and plan.groups == K // 128
+    assert 1 <= plan.split <= cap
+    assert (busy * plan.split >= want or plan.split == cap) and (plan.split - 1) * busy < want
+    assert plan.split == K10_SPLITS[N][pass_ == "down"]
+
+
+@st.composite
+def k10_shapes(draw):
+    """(M, E, K, N, g) inside K10's contract: groups of a multiple of 128, K
+    a multiple of g, N a multiple of 64 (gate|up: 2F, F a multiple of 128)."""
+    g = 128 * draw(st.integers(1, 4))
+    return (draw(st.integers(1, 16384)), draw(st.integers(1, 512)), g * draw(st.integers(1, 48)),
+            64 * draw(st.integers(1, 256)), g)
+
+
+@settings(max_examples=300, deadline=None)
+@given(k10_shapes())
+def test_k10_plan_covers_every_group_once(shape):
+    """Each rank of a K10 cluster sums whole groups, in rank order, at least
+    ``E2E_GROUPS_PER_RANK`` where K is split, and the ranks cover K once;
+    the cluster stays within the plan's largest."""
+    M, E, K, N, g = shape
+    plan = qmoe.e2e_plan(M, E, K, N, g)
+    assert 1 <= plan.split <= min(DECODE_PLAN_SPLIT, K // g)
+    least = 1 if plan.split == 1 else qmoe.E2E_GROUPS_PER_RANK
+    assert all(len(plan.groups_of(r)) >= least for r in range(plan.split))
+    assert [grp for r in range(plan.split) for grp in plan.groups_of(r)] == list(range(K // g))
+
+
+@pytest.mark.cuda
+def test_k10_rings_fit_a_block():
+    """K10's ring at every bm (8 to 32 rows a slot) and width, as the library
+    sizes it (``gqt_qmoe_smem_bytes``), fits what a block of the card may
+    take; at bm = 8 and 4 bits at least the plan's blocks an SM reside; a bm
+    the kernel does not take has no ring."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the sizes come from the CUDA library")
+    props = torch.cuda.get_device_properties(0)
+    lib = _build.lib()
+    for bits in KERNEL_BITS:
+        for bm in K10_BMS:
+            ring = lib.gqt_qmoe_smem_bytes(bits, bm)
+            assert 0 < ring <= props.shared_memory_per_block_optin
+            if bm <= DECODE_MAX_M:  # K1's ring at as many rows
+                assert ring == lib.gqt_decode_smem_bytes(bits, bm, 0)
+        assert lib.gqt_qmoe_smem_bytes(bits, 12) == lib.gqt_qmoe_smem_bytes(bits, 40) == -1
+    ring = lib.gqt_qmoe_smem_bytes(4, 8)
+    resident = props.shared_memory_per_multiprocessor // (ring + BLOCK_RESERVED_SMEM)
+    assert resident >= qmoe.E2E_BLOCKS_PER_SM
