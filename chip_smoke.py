@@ -9,11 +9,15 @@ Phases, each printing JSON lines on stdout:
    sm_90a, one process per source, and the phase prints the commands and
    what ptxas says of each kernel (registers, static shared memory, spills),
    the dynamic shared memory of the decode kernel (``qmm_decode.cuh``: K1,
-   K3, K6, K7 and both passes of K2 at M <= 16) by bits and M, and its
-   instantiations and K10's ring by bm (``gqt_qmoe_smem_bytes``); it fails
-   if K1's, K2's or K6's old 16-row tile is still built, if K6's or K10's
-   decode instantiations are missing, or if K10's old ``qmoe_pass_kernel``
-   instantiations are still built.
+   K3, K4, K5, K6, K7 and both passes of K2 at M <= 16) by bits and M (K4's
+   and K5's rings at 3, 5, 6 and 7 bits), and its instantiations and K10's
+   ring by bm (``gqt_qmoe_smem_bytes``); it fails if K1's, K2's, K4's,
+   K5's or K6's old 16-row tile is still built, if K4's, K5's (every
+   layout, one and two n-tiles, both zero types), K6's or K10's decode
+   instantiations are missing, if K10's old ``qmoe_pass_kernel``
+   instantiations are still built, or if the main loop of K4's 3-bit
+   stitched decode kernel (``cuobjdump -sass``) spends more than
+   ``K4_LOOP_LOP3`` LOP3 a 128-row chunk (one a code pair, and 8).
 2. ``kernels``: each kernel against its plain PyTorch version on the card,
    at the shapes of Llama-3-8B's main paths: K1 (``qmatmul``) at the qkv, o,
    gate_up and down projections for M = 1, 8, 16 (its decode kernel) and
@@ -59,10 +63,11 @@ Phases, each printing JSON lines on stdout:
    and ``torch._weight_int4pack_mm`` timed beside it; and K4
    (``qmatmul_planes``, one zero point) and K5 (``qmatmul_planes_asym``,
    random zeros per group and column) at 3 bits, stitched, at the same four
-   projections for M = 1, 8 and 1024, and 3, 5, 6 and 7-bit planar at qkv,
-   M = 8, twice each for equal bits (no PyTorch call takes such weights, so
-   no library time), with the reference route at M = 1024 timed for the
-   record.
+   projections for M = 1, 8, 16 (the decode kernel's ``Units``
+   instantiation, asserted from the profiler's kernel names) and 1024, and
+   3, 5, 6 and 7-bit planar at qkv, M = 8, twice each for equal bits (no
+   PyTorch call takes such weights, so no library time), with the
+   reference route at M = 1024 timed for the record.
 3. ``slice``: a GPTQ v1 checkpoint at Llama-3-8B's published widths (4-bit,
    symmetric, group 128, dense lm_head; random weights from a seed, about
    5.7 GB) is written to a temporary directory under ``build/``, then
@@ -165,11 +170,12 @@ Phases, each printing JSON lines on stdout:
 
 Then ``{"phase": "profiler"}``: how many torch.profiler sessions lost
 kernel records and were run again, how many were read from the records
-they kept (``device_ms``), and how many timed loops of K1, K2, K3, K6 and
-K7 read under their bound and were timed again (``timed``; a third such
-reading fails the run). K1's, K2's and K6's cases also name the kernels the
+they kept (``device_ms``), and how many timed loops of K1-K7 read under
+their bound and were timed again (``timed``; a third such reading fails the
+run). K1's, K2's, K4's, K5's and K6's cases also name the kernels the
 profiler saw; at M <= 16 they must all be ``qmm_decode_kernel`` (K6: its
-``DequantFirst`` instantiation). Then the card's name and power limit, the ``{"kernels": [...]}`` line and, last,
+``DequantFirst`` instantiation, K4 and K5: ``Units``). Then the card's
+name and power limit, the ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Each record of the kernels line
 names its units: ``launches`` counts a whole run of the main path
 (``launches_per``: K1 and K2 the generate run, K3 the asym-act-slice
@@ -198,9 +204,12 @@ import json
 import math
 import os
 import re
+import shutil
+import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 from unittest import mock
 
@@ -238,14 +247,20 @@ K6_REF_M = 1024  # the prefill's rows, on the reference route: timed for the rec
 K6_TOL = K7_TOL = K1_TOL
 # the fused phase: the llama slice's model under GPTQ_TPU_RT_FUSED=1
 FUSED_NEW = 16
-# K4 and K5: 3-bit stitched at every projection for PLANES_MS, symmetric (K4)
-# and with random zeros per group and column (K5); the planar layouts at qkv,
-# M = 8, both kernels. As K1 and K3: exact products and z*s, f32 sums in
-# another order
-PLANES_MS = (1, 8, 1024)
+# K4 and K5: 3-bit stitched at every projection for PLANES_MS (M <= 16 on the
+# decode kernel), symmetric (K4) and with random zeros per group and column
+# (K5); the planar layouts at qkv, M = 8, both kernels. As K1 and K3: exact
+# products and z*s, f32 sums in another order
+PLANES_MS = (1, 8, 16, 1024)
 PLANE_LAYOUTS = ((3, True), (5, True), (6, True), (7, True))  # (bits, planar) at qkv
 K4_TOL = K5_TOL = K1_TOL
 PLANES_REF_M = 1024  # the reference route (dequantize, then torch.matmul): for the record
+# K4's 3-bit stitched decode loop: a lane turns 32 code pairs a 128-row chunk
+# into mma operands, one LOP3 each (mask and bf16 128 ORed in: unit_pair's
+# magic in a register, qmm_decode.cuh), with 6 LOP3 besides when this limit
+# was set; ptxas folding the magic into immediates takes two a pair
+K4_LOOP = "qmm_decode_kernel<3,1,Units,0,UniformZero,0>"
+K4_LOOP_LOP3 = 32 + 8
 # compare-planes: 2-layer checkpoints beside the planes-slice's first 2 layers
 # (bits, format, sym, desc_act) -> the kernel each runs
 PLANE_COMPARES = {"3bit_asym_act": (3, "gptq", False, True, "qmatmul_planes_asym"),
@@ -349,16 +364,84 @@ def template_args(mangled: str) -> list[str]:
     return out
 
 
+def readable(mangled: str) -> str:
+    """``kernel<template args>`` of a mangled kernel name of namespace gqt."""
+    m = re.match(r"_ZN3gqt(\d+)(\w+)", mangled)
+    if m is None:
+        return mangled
+    n = int(m.group(1))
+    name, rest = m.group(2)[:n], m.group(2)[n:]
+    args = template_args(rest.split("EEv")[0]) if rest.startswith("I") else []
+    return f"{name}<{','.join(args)}>" if args else name
+
+
+SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*?);")
+
+
+def sass_functions(lib: str, mangled: tuple = ()) -> dict:
+    """readable name -> [(address, opcode, operands, line)] of each kernel of
+    ``lib`` (``cuobjdump -sass``; of the ``mangled`` names only, where
+    given)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    only = ["-fun", ",".join(mangled)] if mangled else []
+    out = subprocess.run([tool, "-sass", *only, lib], capture_output=True, text=True,
+                         check=True).stdout
+    found, cur = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = readable(m.group(1))
+            cur = None if name in found else found.setdefault(name, [])
+            continue
+        m = SASS_INSN.search(line)
+        if m and cur is not None:
+            cur.append((int(m.group(1), 16), m.group(3), m.group(4), line.strip()))
+    return found
+
+
+def sass_main_loop(insns: list) -> dict:
+    """The backward branch whose range holds the most HMMA (the narrowest of
+    those), and its instructions: a static count, the body of one iteration
+    with the rarely taken branches inside it."""
+    best = None
+    for addr, op, rest, _ in insns:
+        if not op.startswith("BRA"):
+            continue
+        m = re.search(r"0x([0-9a-f]+)", rest)
+        if m is None or int(m.group(1), 16) >= addr:
+            continue
+        lo = int(m.group(1), 16)
+        body = [o for a, o, _, _ in insns if lo <= a <= addr]
+        hmma = sum(o.startswith("HMMA") for o in body)
+        key = (hmma, -len(body))
+        if best is None or key > best[0]:
+            best = (key, lo, addr, body)
+    if best is None:
+        return {}
+    _, lo, hi, body = best
+    return {"from": hex(lo), "to": hex(hi), "instructions": len(body),
+            "sass": [text for a, _, _, text in insns if lo <= a <= hi],
+            "hmma": sum(o.startswith("HMMA") for o in body),
+            "by_opcode": dict(Counter(o.split(".")[0] for o in body).most_common())}
+
+
+def k4_main_loop(lib_path, ptxas_by_source: dict) -> dict:
+    """The main loop (``sass_main_loop``) of ``K4_LOOP`` in the library at
+    ``lib_path``, its kernel found by the mangled name ptxas reported."""
+    mangled = tuple({m.group(1) for lines in ptxas_by_source.values() for ln in lines
+                     for m in [re.search(r"entry function '(_ZN3gqt\w+)'", ln)]
+                     if m and readable(m.group(1)) == K4_LOOP})
+    return sass_main_loop(sass_functions(str(lib_path), mangled).get(K4_LOOP, []))
+
+
 def ptxas_summary(lines_by_source: dict) -> dict:
     """``kernel<template args>`` -> registers, smem bytes and spill bytes."""
     out, fn = {}, None
     for lines in lines_by_source.values():
         for ln in lines:
-            m = re.search(r"Compiling entry function '_ZN3gqt(\d+)(\w+)'", ln)
-            if m:  # gqt::<name>, its length first, then I<args>E for a template
-                name, rest = m.group(2)[:int(m.group(1))], m.group(2)[int(m.group(1)):]
-                args = template_args(rest.split("EEv")[0]) if rest.startswith("I") else []
-                fn = f"{name}<{','.join(args)}>" if args else name
+            m = re.search(r"Compiling entry function '(_ZN3gqt\w+)'", ln)
+            if m:
+                fn = readable(m.group(1))
                 out[fn] = {}
                 continue
             if fn is None:
@@ -1750,51 +1833,81 @@ def g32_phases(root: Path, card: str) -> dict:
     return out
 
 
+def llama_shapes() -> dict:
+    """Llama-3-8B's four projections: name -> (K, N)."""
+    from gptqmodel_tpu_torch.utils.testing import LLAMA3_8B_CONFIG as C
+
+    D, F = C["hidden_size"], C["intermediate_size"]
+    qkv_n = (C["num_attention_heads"] + 2 * C["num_key_value_heads"]) * (
+        D // C["num_attention_heads"])
+    return {"qkv": (D, qkv_n), "o": (D, D), "gate_up": (D, 2 * F), "down": (F, D)}
+
+
+def planes_variants(shapes: dict, stitched_ms, planar_ms) -> list:
+    """K4's and K5's cases as (proj, bits, planar, sym, Ms): 3-bit stitched
+    at every projection of ``shapes``, the layouts of ``PLANE_LAYOUTS`` at
+    qkv."""
+    variants = [(proj, 3, False, sym, stitched_ms) for proj in shapes for sym in (True, False)]
+    return variants + [("qkv", bits, planar, sym, planar_ms) for bits, planar in PLANE_LAYOUTS
+                       for sym in (True, False)]
+
+
+def planes_inputs(dev, rng, K: int, N: int, bits: int, planar: bool, sym: bool) -> dict:
+    """K4's (``sym``) or K5's weights at one shape from ``rng``, group 128
+    (``random_quant_linear``; K5 with random zeros per group and column),
+    rotated through copies past the L2: the route, the wrapper and its plain
+    version, the module, the bytes of weights a call reads (a symmetric
+    module's zeros are not read: its one zero point is), the copies, the
+    keyword arguments and ``ops(x, i)``, the operands on copy i."""
+    from gptqmodel_tpu_torch.ops import qmatmul as qm
+    from gptqmodel_tpu_torch.ops.registry import post_init_module
+    from gptqmodel_tpu_torch.utils.testing import random_quant_linear
+
+    base = post_init_module(random_quant_linear(rng, K, N, bits, device=dev, sym=sym,
+                                                planar=planar))
+    wbytes = base.qweight.nbytes + base.scales.nbytes + (0 if sym else base.qzeros.nbytes)
+    mods = [base] + [dataclasses.replace(base, qweight=base.qweight.clone(),
+                                         scales=base.scales.clone(), qzeros=base.qzeros.clone())
+                     for _ in range(copies_for(wbytes) - 1)]
+    kw = dict(bits=bits, group_size=128, planar=planar)
+    if sym:
+        kw["zero_const"] = base.zero_const
+        return {"route": "K4", "name": "qmatmul_planes", "fn": qm.qmatmul_planes,
+                "plain": qm.qmatmul_planes_plain, "module": base, "wbytes": wbytes,
+                "copies": mods, "kw": kw,
+                "ops": lambda x, i: (x, mods[i].qweight, mods[i].scales)}
+    return {"route": "K5", "name": "qmatmul_planes_asym", "fn": qm.qmatmul_planes_asym,
+            "plain": qm.qmatmul_planes_asym_plain, "module": base, "wbytes": wbytes,
+            "copies": mods, "kw": kw,
+            "ops": lambda x, i: (x, mods[i].qweight, mods[i].scales, mods[i].qzeros)}
+
+
 def planes_kernel_cases(dev, rng, shapes: dict) -> list:
     """K4 and K5 against their plain versions at Llama-3-8B's projections
     (``shapes``: proj -> K, N), 3-bit stitched at PLANES_MS, and the planar
-    layouts of ``PLANE_LAYOUTS`` at qkv, M = 8; group 128, symmetric (K4) and
-    with random zeros per group and column (K5); two runs each for equal
-    bits, the weights rotated through copies past the L2. No PyTorch call
-    takes 3/5/6/7-bit weights, so there is no library time; the reference
-    route (dequantize to bf16, then ``torch.matmul``) is timed at
-    ``PLANES_REF_M`` rows on the symmetric 3-bit weights, for the record."""
+    layouts of ``PLANE_LAYOUTS`` at qkv, M = 8 (``planes_variants``, inputs
+    from ``planes_inputs``); two runs each for equal bits. At M <= 16 every
+    call must run the decode kernel's ``Units`` instantiation (the
+    profiler's kernel names). No PyTorch call takes 3/5/6/7-bit weights, so
+    there is no library time; the reference route (dequantize to bf16, then
+    ``torch.matmul``) is timed at ``PLANES_REF_M`` rows on the symmetric
+    3-bit weights, for the record."""
     import torch
 
     from gptqmodel_tpu_torch.ops import _build
     from gptqmodel_tpu_torch.ops.qlinear import qlinear_forward_torch
-    from gptqmodel_tpu_torch.ops.qmatmul import (
-        qmatmul_planes, qmatmul_planes_asym, qmatmul_planes_asym_plain, qmatmul_planes_plain,
-    )
-    from gptqmodel_tpu_torch.ops.registry import kernel_route, post_init_module
-    from gptqmodel_tpu_torch.utils.testing import random_quant_linear
+    from gptqmodel_tpu_torch.ops.qmatmul import DECODE_MAX_M
+    from gptqmodel_tpu_torch.ops.registry import kernel_route
 
     cases = []
-    variants = [(proj, 3, False, sym, PLANES_MS) for proj in shapes for sym in (True, False)]
-    variants += [("qkv", bits, planar, sym, (B,)) for bits, planar in PLANE_LAYOUTS
-                 for sym in (True, False)]
-    for proj, bits, planar, sym, ms in variants:
+    for proj, bits, planar, sym, ms in planes_variants(shapes, PLANES_MS, (B,)):
         K, N = shapes[proj]
-        base = post_init_module(random_quant_linear(rng, K, N, bits, device=dev, sym=sym,
-                                                    planar=planar))
-        route = "K4" if sym else "K5"
+        c = planes_inputs(dev, rng, K, N, bits, planar, sym)
+        route, name, fn, plain, kw = c["route"], c["name"], c["fn"], c["plain"], c["kw"]
+        base, mods, wbytes = c["module"], c["copies"], c["wbytes"]
         require(kernel_route(base) == route and base.planar == planar,
                 f"{route} case {proj} {bits}-bit planar={planar} off its route")
-        # a symmetric module's zeros are not read: its one zero point is
-        wbytes = base.qweight.nbytes + base.scales.nbytes + (0 if sym else base.qzeros.nbytes)
-        mods = [base] + [dataclasses.replace(base, qweight=base.qweight.clone(),
-                                             scales=base.scales.clone(),
-                                             qzeros=base.qzeros.clone())
-                         for _ in range(copies_for(wbytes) - 1)]
-        kw = dict(bits=bits, group_size=128, planar=planar)
-        if sym:
-            name, fn, plain = "qmatmul_planes", qmatmul_planes, qmatmul_planes_plain
-            kw["zero_const"] = base.zero_const
-            ops = lambda i: (x, mods[i].qweight, mods[i].scales)
-        else:
-            name, fn, plain = ("qmatmul_planes_asym", qmatmul_planes_asym,
-                               qmatmul_planes_asym_plain)
-            ops = lambda i: (x, mods[i].qweight, mods[i].scales, mods[i].qzeros)
+        ops = lambda i: c["ops"](x, i)
         for M in ms:
             x = torch.from_numpy(rng.standard_normal((M, K), dtype=np.float32)).to(dev).to(
                 torch.bfloat16)
@@ -1805,12 +1918,13 @@ def planes_kernel_cases(dev, rng, shapes: dict) -> list:
             require(_build.LAUNCHES[name] == before + 2, f"{route} did not launch")
             identical = torch.equal(y, y2)
             rel, mx = errors(y, ref)
-            k = timed(lambda i: fn(*ops(i), **kw), len(mods))
-            pl_ = timed(lambda i: plain(*ops(i), **kw), len(mods), budget_ms=100.0)
             b_ms, b_by = bound(x.nbytes + wbytes + y.nbytes, 2.0 * M * N * K)
+            k = timed(lambda i: fn(*ops(i), **kw), len(mods), floor_ms=b_ms)
+            pl_ = timed(lambda i: plain(*ops(i), **kw), len(mods), budget_ms=100.0)
             case = {"kernel": name, "proj": proj, "bits": bits, "planar": planar, "sym": sym,
                     "M": M, "K": K, "N": N, "rel_err": rel, "max_abs_err": mx,
                     "identical_runs": identical, "ms": k["ms"], "wall_ms": k["wall_ms"],
+                    "kernel_names": k["kernels"],
                     "plain_ms": pl_["ms"], "bound_ms": b_ms, "bound_by": b_by,
                     "library_ms": None,
                     "library": "none exists: no PyTorch call takes 3/5/6/7-bit weights",
@@ -1822,6 +1936,9 @@ def planes_kernel_cases(dev, rng, shapes: dict) -> list:
                     f"rel {rel} > {tol}")
             require(identical, f"{route} {proj} {bits}-bit planar={planar} M={M}: "
                     "two runs differ")
+            require(M > DECODE_MAX_M or (on_decode_kernel(k["kernels"]) and
+                                         all("Units" in n for n in k["kernels"])),
+                    f"{route} {proj} {bits}-bit planar={planar} M={M} ran {k['kernels']}")
         if (bits, planar, sym) == (3, False, True):
             x = torch.from_numpy(rng.standard_normal((PLANES_REF_M, K), dtype=np.float32)).to(
                 dev).to(torch.bfloat16)
@@ -1834,7 +1951,7 @@ def planes_kernel_cases(dev, rng, shapes: dict) -> list:
                     "route": "dequantize to bf16, then torch.matmul (no kernel of the port)"}
             cases.append(case)
             emit({"phase": "kernels", **case})
-        del base, mods
+        del c, base, mods
     torch.cuda.empty_cache()
     return cases
 
@@ -1936,7 +2053,7 @@ def main() -> int:
     from gptqmodel_tpu_torch.models.optimize import _concat_quant
     from gptqmodel_tpu_torch.ops import _build
     from gptqmodel_tpu_torch.ops.qmatmul import (
-        DECODE_MAX_M, KERNEL_BITS, qmatmul, qmatmul_plain,
+        DECODE_MAX_M, KERNEL_BITS, PLANE_BITS, qmatmul, qmatmul_plain,
     )
     from gptqmodel_tpu_torch.ops.qmlp import qmlp, qmlp_plain
     from gptqmodel_tpu_torch.ops.gptq_solve import (
@@ -1957,7 +2074,7 @@ def main() -> int:
     record = {"gpu": card, "torch": torch.__version__, "cuda": torch.version.cuda}
 
     # ---------------------------------------------------------------- build
-    _build.build()  # always, so that the phase reports this run's nvcc
+    lib_path = _build.build()  # always, so that the phase reports this run's nvcc
     smem_of = _build.lib().gqt_decode_smem_bytes  # the header's own sizes
     info = _build.BUILD_INFO
     kernels_ptxas = ptxas_summary(info["ptxas"])
@@ -1988,10 +2105,25 @@ def main() -> int:
     old_k10 = [k for k in kernels_ptxas if k.startswith("qmoe_pass_kernel<")
                and not re.fullmatch(r"qmoe_pass_kernel<\d,\d,\d,[01]>", k)]
     require(not old_k10, f"K10's qmoe_pass_kernel instantiations are still built: {old_k10}")
+    # K4 and K5 at M <= 16: Units over either zeros, at every layout
+    for bits, planar in ((3, False), *PLANE_LAYOUTS):
+        for nt in (1, 2):
+            for z in ("UniformZero", f"PlaneZeros,{bits},{int(planar)}"):
+                require(f"qmm_decode_kernel<{bits},{nt},Units,{int(planar)},{z},0>"
+                        in decode_kernels,
+                        f"no {bits}-bit planar={planar} K4/K5 decode kernel on {z} for "
+                        f"{8 * nt} rows in the build")
     old_tile = (r"qmatmul_kernel<\d,1,1,UniformZero(,0)?>|qmlp_gate_up_kernel<\d,1>"
-                r"|qmm_kernel<\d,1,1,.*>")
+                r"|qmm_kernel<\d,1,1,.*>|planes_kernel<\d,[01],1,1,.*>")
     old_tiles = [k for k in kernels_ptxas if re.fullmatch(old_tile, k)]
-    require(not old_tiles, f"K1's, K2's or K6's 16-row tile is still built: {old_tiles}")
+    require(not old_tiles,
+            f"K1's, K2's, K4's, K5's or K6's 16-row tile is still built: {old_tiles}")
+    # K4's 3-bit stitched decode loop, from its SASS: one LOP3 a code pair
+    t0 = time.perf_counter()
+    k4_loop = k4_main_loop(lib_path, info["ptxas"])
+    k4_lop3 = k4_loop.get("by_opcode", {}).get("LOP3")
+    require(k4_lop3 is not None and k4_lop3 <= K4_LOOP_LOP3,
+            f"{K4_LOOP}'s main loop holds {k4_lop3} LOP3 a chunk, more than {K4_LOOP_LOP3}")
     build_rec = {"phase": "build", "seconds": info["seconds"], "compile": info["compile"],
                  "link": info["link"], "ptxas": kernels_ptxas,
                  # of every decode kernel instantiation, which sizes its own
@@ -2001,10 +2133,16 @@ def main() -> int:
                  "k6_decode_dynamic_smem_g32": {f"{bits}-bit": {M: smem_of(bits, M, 32)
                                                                 for M in (1, 8, 16)}
                                                 for bits in KERNEL_BITS},
+                 "planes_decode_dynamic_smem": {f"{bits}-bit": {M: smem_of(bits, M, 0)
+                                                                for M in (1, 8, 16)}
+                                                for bits in PLANE_BITS},
                  "k10_dynamic_smem": {f"{bits}-bit": {bm: _build.lib().gqt_qmoe_smem_bytes(bits, bm)
                                                       for bm in (8, 16, 24, 32)}
                                       for bits in KERNEL_BITS},
                  "decode_kernels": decode_kernels,
+                 "k4_3bit_loop": {"kernel": K4_LOOP, "instructions": k4_loop["instructions"],
+                                  "lop3": k4_lop3, "lop3_limit": K4_LOOP_LOP3,
+                                  "sass_seconds": time.perf_counter() - t0},
                  "torch": torch.__version__, "cuda": torch.version.cuda}
     emit(build_rec)
     record["build"] = build_rec
@@ -2013,10 +2151,7 @@ def main() -> int:
     has_int4pack, library = int4pack_library()
     rng = np.random.default_rng([SEED, 100])
     D, F = LLAMA3_8B_CONFIG["hidden_size"], LLAMA3_8B_CONFIG["intermediate_size"]
-    hd = D // LLAMA3_8B_CONFIG["num_attention_heads"]
-    qkv_n = (LLAMA3_8B_CONFIG["num_attention_heads"]
-             + 2 * LLAMA3_8B_CONFIG["num_key_value_heads"]) * hd
-    k1_shapes = {"qkv": (D, qkv_n), "o": (D, D), "gate_up": (D, 2 * F), "down": (F, D)}
+    k1_shapes = llama_shapes()
     cases = []
     for proj, (K, N) in k1_shapes.items():
         base = post_init_module(random_quant_linear(rng, K, N, 4, device=dev))
@@ -2351,7 +2486,8 @@ def main() -> int:
          **per_step("qmm", [("qkv", L), ("o", L), ("gate_up", L), ("down", L)],
                     group_size=32, sym=True)},
         {"name": "qmatmul_planes (K4)", "route": "cuda",
-         "source": "gptqmodel_tpu_torch/csrc/qmatmul_planes.cu",
+         "source": ("gptqmodel_tpu_torch/csrc/qmm_decode.cuh (M <= 16), "
+                    "gptqmodel_tpu_torch/csrc/qmatmul_planes.cu (M > 16)"),
          "replaces": "gptqmodel_tpu/ops/pallas_qmatmul.py:385",
          "launches": planes["planes_slice"]["generate_counts"]["qmatmul_planes"],
          "launches_per": "planes-slice generate run",
@@ -2360,7 +2496,8 @@ def main() -> int:
          **per_step("qmatmul_planes", [("qkv", L), ("o", L), ("gate_up", L), ("down", L)],
                     bits=3, planar=False)},
         {"name": "qmatmul_planes_asym (K5)", "route": "cuda",
-         "source": "gptqmodel_tpu_torch/csrc/qmatmul_planes.cu",
+         "source": ("gptqmodel_tpu_torch/csrc/qmm_decode.cuh (M <= 16), "
+                    "gptqmodel_tpu_torch/csrc/qmatmul_planes.cu (M > 16)"),
          "replaces": "gptqmodel_tpu/ops/pallas_qmatmul.py:421",
          "launches": sum(c["generate_counts"]["qmatmul_planes_asym"]
                          for c in planes["compare_planes"].values()

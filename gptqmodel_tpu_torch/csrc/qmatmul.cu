@@ -49,20 +49,6 @@
 
 namespace gqt {
 
-// K1, K3 and K7: the decode kernel at M <= 16 (split from the launch plan),
-// launch_by_m's tiles, from kernel_of, beyond. launch_by_m picks Tile<1, 1>
-// only at M <= 16, so the callers' kernel_of maps that tile to Tile<4, 1>'s
-// kernel, which it never launches, and emits no decode tile of its own.
-template <int BITS, class Z, bool FOLD, class KernelOf>
-int dispatch_decode_or_tile(KernelOf kernel_of, const void* x, int M, int K, const void* qw,
-                            const void* sc, int N, int g, Z zero, int split, void* out,
-                            cudaStream_t stream) {
-  if (M <= kDecodeMaxM)
-    return launch_decode<BITS, Z, FOLD>(x, M, K, qw, sc, N, g, zero, split, out, stream);
-  launch_by_m(kernel_of, x, M, K, qw, sc, N, g, zero, out, stream);
-  return (int)cudaGetLastError();
-}
-
 // K3's 32 x 32 prefill tile at 4 bits: qmatmul_kernel's body, bounded so
 // that 3 blocks fit an SM (168 registers, no spill; 182 without the bound).
 // At 2 and 8 bits the bound spills, so those keep qmatmul_kernel.
@@ -195,18 +181,22 @@ extern "C" int gqt_qmatmul_fused(const void* x, int M, int K, const void* qweigh
 }
 
 // The dynamic shared memory of the decode kernel's block at M rows (its
-// ring): K1's, K3's, K7's and K2's for g = 0, K6's at group g > 0; or -1 for
-// unsupported bits, M or g.
+// ring): K1's, K3's, K7's and K2's for g = 0, K6's at group g > 0; at 3, 5,
+// 6 and 7 bits K4's and K5's for g = 0; or -1 for unsupported bits, M or g.
 extern "C" int gqt_decode_smem_bytes(int bits, int M, int g) {
   const auto of = [&](auto shape) {
     using D = decltype(shape);
     if (g == 0) return D::smem_bytes(M);
-    return g < D::MIN_GROUP || gqt::kChunk % g ? -1 : D::k6_smem_bytes(M, g);
+    return D::UNITS || g < D::MIN_GROUP || gqt::kChunk % g ? -1 : D::k6_smem_bytes(M, g);
   };
   if (M < 1 || M > gqt::kDecodeMaxM) return -1;
   switch (bits) {
     case 2: return of(gqt::DecodeShape<2>{});
+    case 3: return of(gqt::DecodeShape<3>{});
     case 4: return of(gqt::DecodeShape<4>{});
+    case 5: return of(gqt::DecodeShape<5>{});
+    case 6: return of(gqt::DecodeShape<6>{});
+    case 7: return of(gqt::DecodeShape<7>{});
     case 8: return of(gqt::DecodeShape<8>{});
     default: return -1;
   }

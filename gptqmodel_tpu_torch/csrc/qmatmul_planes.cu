@@ -24,8 +24,25 @@
 //
 // What bounds it on an H100 (3.35 TB/s, 989 TFLOP/s bf16): at decode
 // (M <= 16) the packed weights, bits/8 bytes each, read once; at prefill
-// (M = 1024) the 2*M*N*K operations. The design, simple first: K1's tile and
-// block (qmm_common.cuh, launch_by_m, unchanged) with another B operand.
+// (M = 1024) the 2*M*N*K operations.
+//
+// Decode (M <= 16): the decode kernel of qmm_decode.cuh with Z =
+// Units<PLANAR, UniformZero> (K4) or Units<PLANAR, PlaneZeros<BITS, PLANAR>>
+// (K5), K1's and K3's ring, cluster and arithmetic. A stage holds a 128-row
+// chunk: 4 units, 4*BITS word rows of the 64-column tile, the group's scale
+// row, K5's 2 units of zeros words, and x's slice. Lane t of a quad takes
+// unit t; of its 32 rows each of the two K shares takes 16 (rows 8h + j and
+// 8h + 16 + j, j = 0..7), as 8 code pairs whose two rows lie 16 bits apart
+// once the lane has rearranged its words: in the planar layout with one
+// byte permute per word pair of the 4-bit and 2-bit planes (the 1-bit plane
+// has them so already), in the stitched one with two funnel shifts and two
+// byte permutes. A pair then takes one shift, one AND-OR with the magic
+// 0x4300 and one bf16 subtraction per plane (stitched: per unit), as K1's
+// code_pair does; x's B fragment is gathered from the same rows. K5's zeros
+// are decoded from the stage at the group's end by unit_code.
+//
+// Prefill (M > 16): K1's tile and block (qmm_common.cuh, launch_by_m,
+// unchanged) with another B operand.
 // - Lane t of a quad owns one 32-row unit of each of its columns per 128-row
 //   chunk (units k0/32 + t), loads that unit's BITS words (four lanes of a
 //   quad and eight quads of a warp read 4*BITS 32-byte sectors) and keeps the
@@ -51,6 +68,7 @@
 #include <type_traits>
 
 #include "qmm_common.cuh"
+#include "qmm_decode.cuh"
 
 namespace gqt {
 
@@ -242,65 +260,69 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The decode kernel at M <= 16 (Units over zero), planes_kernel's tiles
+// beyond; launch_by_m's 16-row tile is never launched, so kernel_of maps it
+// to Tile<4, 1>'s kernel.
 template <int BITS, bool PLANAR, class Z>
-void dispatch_planes(const void* x, int M, int K, const void* qw, const void* sc, int N,
-                     int g, Z zero, void* out, cudaStream_t stream) {
+int dispatch_planes(const void* x, int M, int K, const void* qw, const void* sc, int N, int g,
+                    Z zero, int split, void* out, cudaStream_t stream) {
   const auto kernel_of = [](auto tile) {
     using T = decltype(tile);
-    return planes_kernel<BITS, PLANAR, T::MT, T::NT, Z>;
+    return planes_kernel<BITS, PLANAR, T::MT == 1 ? 4 : T::MT, T::NT, Z>;
   };
-  launch_by_m(kernel_of, x, M, K, qw, sc, N, g, zero, out, stream);
+  return dispatch_decode_or_tile<BITS, Units<PLANAR, Z>, false>(
+      kernel_of, x, M, K, qw, sc, N, g, Units<PLANAR, Z>{zero}, split, out, stream);
 }
 
 // f(bits, planar) as compile-time constants for the five layouts K4 and K5
-// take: 3-bit stitched, 3, 5, 6 and 7-bit planar. -1 for any other.
+// take: 3-bit stitched, 3, 5, 6 and 7-bit planar; f's result, or -1 for any
+// other layout.
 template <class F>
 int by_layout(int bits, int planar, F f) {
   using P = std::true_type;
-  if (bits == 3 && !planar) {
-    f(std::integral_constant<int, 3>{}, std::false_type{});
-    return 0;
-  }
+  if (bits == 3 && !planar) return f(std::integral_constant<int, 3>{}, std::false_type{});
   if (!planar) return -1;
   switch (bits) {
-    case 3: f(std::integral_constant<int, 3>{}, P{}); return 0;
-    case 5: f(std::integral_constant<int, 5>{}, P{}); return 0;
-    case 6: f(std::integral_constant<int, 6>{}, P{}); return 0;
-    case 7: f(std::integral_constant<int, 7>{}, P{}); return 0;
+    case 3: return f(std::integral_constant<int, 3>{}, P{});
+    case 5: return f(std::integral_constant<int, 5>{}, P{});
+    case 6: return f(std::integral_constant<int, 6>{}, P{});
+    case 7: return f(std::integral_constant<int, 7>{}, P{});
     default: return -1;
   }
 }
 
 }  // namespace gqt
 
-// The entry points return 0, -1 for an unsupported layout, or the CUDA error
-// of the launch. The caller checks the contract: bf16 x [M, K] (16-byte
-// aligned rows), int32 qweight [K*bits/32, N], fp16 scales [K/g, N],
-// g % 128 == 0, K % g == 0, N % 32 == 0 (K5 also int32 v2 qzeros
-// [K/g, N*bits/32] in the weights' layout); and allocates out [M, N] bf16.
+// The entry points return 0, -1 for an unsupported layout or a decode split
+// outside 1 .. min(8, K / g), or the CUDA error of the launch. The caller
+// checks the contract: bf16 x [M, K] (16-byte aligned rows), int32 qweight
+// [K*bits/32, N], fp16 scales [K/g, N], g % 128 == 0, K % g == 0,
+// N % 32 == 0 (K5 also int32 v2 qzeros [K/g, N*bits/32] in the weights'
+// layout; at decode 16-byte aligned qweight and scales); and allocates out
+// [M, N] bf16. split is the decode plan's cluster size (ops/qmatmul.py), 0
+// above 16 rows.
 extern "C" int gqt_qmatmul_planes(const void* x, int M, int K, const void* qweight,
                                   const void* scales, int N, int group_size, float zero_const,
-                                  int bits, int planar, void* out, void* stream) {
+                                  int bits, int planar, int split, void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const gqt::UniformZero z{zero_const};
-  const int rc = gqt::by_layout(bits, planar, [&](auto b, auto pl) {
-    gqt::dispatch_planes<decltype(b)::value, decltype(pl)::value>(
-        x, M, K, qweight, scales, N, group_size, z, out, s);
+  return gqt::by_layout(bits, planar, [&](auto b, auto pl) {
+    return gqt::dispatch_planes<decltype(b)::value, decltype(pl)::value>(
+        x, M, K, qweight, scales, N, group_size, z, split, out, s);
   });
-  return rc != 0 ? rc : (int)cudaGetLastError();
 }
 
 extern "C" int gqt_qmatmul_planes_asym(const void* x, int M, int K, const void* qweight,
                                        const void* scales, const void* qzeros, int N,
-                                       int group_size, int bits, int planar, void* out,
-                                       void* stream) {
+                                       int group_size, int bits, int planar, int split,
+                                       void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rc = gqt::by_layout(bits, planar, [&](auto b, auto pl) {
+  return gqt::by_layout(bits, planar, [&](auto b, auto pl) {
     constexpr int BITS = decltype(b)::value;
     constexpr bool PLANAR = decltype(pl)::value;
     const gqt::PlaneZeros<BITS, PLANAR> z{static_cast<const uint32_t*>(qzeros),
                                           N * BITS / 32};
-    gqt::dispatch_planes<BITS, PLANAR>(x, M, K, qweight, scales, N, group_size, z, out, s);
+    return gqt::dispatch_planes<BITS, PLANAR>(x, M, K, qweight, scales, N, group_size, z,
+                                              split, out, s);
   });
-  return rc != 0 ? rc : (int)cudaGetLastError();
 }

@@ -348,10 +348,11 @@ struct Tile {
 
 // The tile by M, for qmatmul_kernel (K1, K3, K7), qmm_kernel (K6) and the
 // planes kernels (K4, K5): decode (M <= 16) one row tile and 8 columns a
-// block, which K1, K3, K6 and K7 never launch (their decode kernel is
-// qmm_decode.cuh; their kernel_of maps this tile to Tile<4, 1>'s kernel); up
-// to 64 rows four row tiles; beyond, 32 x 32 tiles when N allows. kernel_of(Tile<MT, NT>{}) gives the kernel of that tile; the
-// kernels take these operands.
+// block, which none of them launches (their decode kernel is
+// qmm_decode.cuh; their kernel_of maps this tile to Tile<4, 1>'s kernel);
+// up to 64 rows four row tiles; beyond, 32 x 32 tiles when N allows.
+// kernel_of(Tile<MT, NT>{}) gives the kernel of that tile; the kernels take
+// these operands.
 template <class KernelOf, class Z>
 void launch_by_m(KernelOf kernel_of, const void* x, int M, int K, const void* qw,
                  const void* sc, int N, int g, Z zero, void* out, cudaStream_t stream) {

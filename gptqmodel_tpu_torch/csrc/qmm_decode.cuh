@@ -1,6 +1,6 @@
-// The decode kernel of K1, K3, K6 and K7, and of both passes of K2 (M <= 16
-// rows): y[M, N] = x[M, K] @ dequant(qweight); and of both passes of K10
-// (qmoe.cu), a slot of up to 32 routed rows a block.
+// The decode kernel of K1, K3, K4, K5, K6 and K7, and of both passes of K2
+// (M <= 16 rows): y[M, N] = x[M, K] @ dequant(qweight); and of both passes
+// of K10 (qmoe.cu), a slot of up to 32 routed rows a block.
 //
 // At decode the packed weights are the whole cost: each is read once and
 // used for at most 16 rows, so the card's 3.35 TB/s bounds the kernel and
@@ -97,6 +97,20 @@
 // and the cluster splits K in whole groups; its ic weight
 // bf16(bf16(c - zc) * s) is K10's bf16((q - zc) * s), as c - zc is exact in
 // bf16 and the product exact in f32 before its one rounding.
+//
+// K4 and K5 (qmatmul_planes.cu) take Z = Units<PLANAR, UniformZero> or
+// Units<PLANAR, PlaneZeros<BITS, PLANAR>>: 3, 5, 6 or 7-bit codes in 32-row
+// units of BITS words, stitched (3-bit) or planar, K1's and K3's arithmetic.
+// A stage holds 4 units (4*BITS word rows), a depth of DecodeShape::STAGES
+// keeps about 20 KB of weights in flight at every width, and x's slice has 4
+// words of pad after each unit. Lane t takes unit t of the chunk and, of its
+// 32 rows, the 16 of its K share kp: rows 8kp + j and 8kp + 16 + j, j =
+// 0..7, which unit_words rearranges so that each pair's two codes lie 16
+// bits apart (unit_pair: one shift and one AND-OR a plane, then code_pair's
+// bf16 subtraction). K5's zeros are the group's 2 units of BITS qzeros
+// words in the stage, a lane's 4 decoded at once by unit_quad when the
+// group ends. K4's and K5's one-n-tile instantiations hold 64 registers, so
+// that 5 blocks reside an SM (below).
 
 #pragma once
 
@@ -133,19 +147,33 @@ constexpr int kDecodeProducers = GQT_DECODE_PRODUCERS;  // warps that fill the r
 constexpr int kDecodeThreads = 32 * (kDecodeConsumers + kDecodeProducers);
 constexpr int kDecodeBarBytes = 128;  // the ring's mbarriers, ahead of the ring
 
-// Sizes of one stage of the ring (one 128-row chunk) at BITS bits.
+// Sizes of one stage of the ring (one 128-row chunk) at BITS bits. At 3, 5,
+// 6 and 7 bits (UNITS: K4's and K5's widths) a chunk is 4 units of 32 rows,
+// each BITS consecutive word rows (stitched or planar, qmatmul_planes.cu).
 template <int BITS>
 struct DecodeShape {
+  static constexpr bool UNITS = 32 % BITS != 0;
   static constexpr int PF = 32 / BITS;
-  static constexpr int WR = kChunk / PF;  // word rows per chunk
+  static constexpr int WR = kChunk * BITS / 32;  // word rows per chunk
   static constexpr int ITS = WR / 4;      // 4-word-row steps per chunk
-  static constexpr int STAGES = BITS == 2 ? 8 : BITS == 4 ? 6 : 4;
-  // x row in words: 64 (128 bf16) + a pad that spreads a warp's loads over the banks
-  static constexpr int XPAD = BITS == 2 ? 4 : BITS == 4 ? 16 : 8;
+  // STAGES - 1 chunks in flight: about 20 KB of weights a block at every
+  // width (3 bits: 18 KB, so that at M = 8 the ring leaves 5 blocks an SM)
+  static constexpr int STAGES =
+      BITS == 2 ? 8 : BITS == 3 ? 7 : BITS == 4 ? 6 : BITS == 5 ? 5 : 4;
+  // a word row in shared memory: 64 words and a pad, so that the rows a
+  // quarter warp reads fall in distinct banks (at 6 bits the 4 units of a
+  // chunk start 6 rows apart, so 4 words of pad and not 8)
+  static constexpr int ROWW = BITS == 6 ? kDecodeCols + 4 : kDecodeRowWords;
+  // x row in words: 64 (128 bf16) + a pad that spreads a warp's loads over
+  // the banks; at 3, 5, 6 and 7 bits 4 words after each 32-row unit (XUNIT
+  // words a unit), so that the 4 lanes of a quad, one unit each, and the
+  // next token's lanes read distinct banks
+  static constexpr int XPAD = BITS == 2 ? 4 : BITS == 8 ? 8 : 16;
   static constexpr int XROW = kChunk / 2 + XPAD;
-  static constexpr int W_BYTES = WR * kDecodeRowWords * 4;
+  static constexpr int XUNIT = XROW / 4;
+  static constexpr int W_BYTES = WR * ROWW * 4;
   static constexpr int S_BYTES = kDecodeCols * 2;  // the group's fp16 scales
-  static constexpr int Z_BYTES = 64;               // the group's qzeros words (K3)
+  static constexpr int Z_BYTES = 64;               // the group's qzeros words (K3, K5)
   __host__ __device__ static constexpr int stage_bytes(int M) {
     return W_BYTES + S_BYTES + Z_BYTES + M * XROW * 4;
   }
@@ -171,19 +199,22 @@ struct DecodeShape {
     return kDecodeBarBytes + K6_STAGES * k6_stage_bytes(M, g);
   }
   // A block's ring at the most rows (K6's at its smallest group, K10's at
-  // 32 rows a slot) fits what a block may take; and at the two blocks an SM
-  // that the launch plan gives
-  // at least, the ring's depth less one chunks of weights in flight (K1's
-  // and K6's) make 24 KB or more an SM.
+  // 32 rows a slot; K4's and K5's at 16) fits what a block may take; and at
+  // the two blocks an SM that the launch plan gives at least, the ring's
+  // depth less one chunks of weights in flight (K1's, K4's and K6's) make
+  // 24 KB or more an SM. A stage holds K5's zeros: 2 units of BITS words.
   static constexpr bool fits() {
     return smem_bytes(kDecodeMaxM) <= kDecodeMaxSmem &&
-           smem_bytes(kDecodeMoeMaxM) <= kDecodeMaxSmem &&
-           k6_smem_bytes(kDecodeMaxM, MIN_GROUP) <= kDecodeMaxSmem &&
            2 * (STAGES - 1) * WR * kDecodeCols * 4 >= 24 * 1024 &&
-           2 * (K6_STAGES - 1) * WR * kDecodeCols * 4 >= 24 * 1024;
+           (UNITS ? 2 * BITS * 4 <= Z_BYTES && XUNIT == 20
+                  : smem_bytes(kDecodeMoeMaxM) <= kDecodeMaxSmem &&
+                        k6_smem_bytes(kDecodeMaxM, MIN_GROUP) <= kDecodeMaxSmem &&
+                        2 * (K6_STAGES - 1) * WR * kDecodeCols * 4 >= 24 * 1024);
   }
 };
-static_assert(DecodeShape<2>::fits() && DecodeShape<4>::fits() && DecodeShape<8>::fits(),
+static_assert(DecodeShape<2>::fits() && DecodeShape<3>::fits() && DecodeShape<4>::fits() &&
+                  DecodeShape<5>::fits() && DecodeShape<6>::fits() && DecodeShape<7>::fits() &&
+                  DecodeShape<8>::fits(),
               "the decode ring must fit a block and keep 24 KB an SM in flight");
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -308,6 +339,145 @@ struct moe_pass<MoeDown<Z>> : std::true_type {
   static constexpr bool gate_up = false;
 };
 
+// K4 and K5 (qmatmul_planes.cu): the codes in 32-row units of BITS words,
+// the stitched 3-bit layout (PLANAR false) or the planar one, over the
+// zeros Z: UniformZero (K4) or PlaneZeros<BITS, PLANAR> (K5, whose qzeros
+// words the stage holds: 2 units of BITS words a group).
+template <bool PLANAR, class Z>
+struct Units : Z {};
+
+// Whether Z is K4's or K5's, its layout and its zeros.
+template <class Z>
+struct units : std::false_type {
+  using zeros = Z;
+  static constexpr bool planar = false;
+};
+template <bool PLANAR, class Z>
+struct units<Units<PLANAR, Z>> : std::true_type {
+  using zeros = Z;
+  static constexpr bool planar = PLANAR;
+};
+
+// The words unit_pair reads of one column: K4's and K5's lane owns 16 rows
+// of a 32-row unit, rows 8h + j and 8h + 16 + j (j = 0..7, h its K share),
+// which it takes as 8 pairs (row 8h + j, row 8h + 16 + j). The words hold
+// pair j's two codes 16 bits apart, so that one mask and one OR of 0x4300
+// make both bf16 at once, as code_pair does. Stitched: 2 words (pairs 0-4
+// at bit 3j, 5-7 at 3(j - 5)); planar: 2 for the 4-bit plane (pairs 0-3,
+// 4-7 at 4j), 1 for the 2-bit plane, 1 for the 1-bit plane.
+template <int BITS, bool PLANAR>
+struct UnitShape {
+  static constexpr int NW =
+      PLANAR ? ((BITS & 4) ? 2 : 0) + ((BITS & 2) ? 1 : 0) + (BITS & 1) : 2;
+  static constexpr int I2 = (BITS & 4) ? 2 : 0;     // the 2-bit plane's word
+  static constexpr int O2 = (BITS & 4) ? 4 : 0;     // its bit offset in the code
+  static constexpr int I1 = I2 + ((BITS & 2) ? 1 : 0);  // the 1-bit plane's
+  static constexpr int O1 = O2 + ((BITS & 2) ? 2 : 0);
+  static_assert(PLANAR || BITS == 3, "the stitched layout is 3-bit");
+};
+
+// m[i] = the UnitShape words of column i of 4 neighbouring columns: u the
+// unit's first word row at those columns in shared memory, rw the row
+// stride in words, h the lane's K share (0 or 1).
+template <int BITS, bool PLANAR>
+__device__ __forceinline__ void unit_words(const uint32_t* u, int rw, int h,
+                                           uint32_t (&m)[4][UnitShape<BITS, PLANAR>::NW]) {
+  using U = UnitShape<BITS, PLANAR>;
+  const auto row = [&](int r, uint32_t (&v)[4]) {  // word row r of the 4 columns
+    const uint4 q = *reinterpret_cast<const uint4*>(u + r * rw);
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  };
+  if constexpr (!PLANAR) {  // one 96-bit stream, row r at bit 3r
+    uint32_t w0[4], w1[4], w2[4];
+    row(0, w0); row(1, w1); row(2, w2);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      // rows 8h .. 8h + 7 from bit 0 of L, rows 8h + 16 .. 8h + 23 from bit 0 of H
+      const uint32_t L = __funnelshift_r(w0[i], w1[i], 24 * h);
+      const uint32_t H = __funnelshift_r(h ? w2[i] : w1[i], w2[i], 16 - 8 * h);
+      m[i][0] = __byte_perm(L, H, 0x5410);
+      m[i][1] = __byte_perm(L >> 15, H >> 15, 0x5410);
+    }
+  } else {
+    uint32_t a[4], b[4];
+    if constexpr ((BITS & 4) != 0) {  // words 0-3: rows 8w .. 8w + 7 at 4(r - 8w)
+      row(h, a); row(2 + h, b);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        m[i][0] = __byte_perm(a[i], b[i], 0x5410);
+        m[i][1] = __byte_perm(a[i], b[i], 0x7632);
+      }
+    }
+    if constexpr ((BITS & 2) != 0) {  // 2 words from O2: rows 16w .. 16w + 15 at 2(r - 16w)
+      row(U::O2, a); row(U::O2 + 1, b);
+      const uint32_t sel = h ? 0x7632u : 0x5410u;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) m[i][U::I2] = __byte_perm(a[i], b[i], sel);
+    }
+    if constexpr ((BITS & 1) != 0) {  // word O1: row r at bit r
+      row(U::O1, a);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) m[i][U::I1] = a[i] >> (8 * h);
+    }
+  }
+}
+
+// v >> s, or v << -s for s < 0 (s a constant once unrolled).
+__device__ __forceinline__ uint32_t shift_down(uint32_t v, int s) {
+  return s >= 0 ? v >> s : v << -s;
+}
+
+// bf16 pair (code of row 8h + j, code of row 8h + 16 + j) from unit_words'
+// words of one column, exact (codes <= 127). magic is 0x43004300 (bf16 128
+// twice) in a register, so that each plane's mask and OR is one LOP3.
+template <int BITS, bool PLANAR>
+__device__ __forceinline__ uint32_t unit_pair(const uint32_t (&m)[UnitShape<BITS, PLANAR>::NW],
+                                              int j, uint32_t magic) {
+  using U = UnitShape<BITS, PLANAR>;
+  uint32_t c;
+  if constexpr (!PLANAR) {
+    c = ((m[j < 5 ? 0 : 1] >> (3 * (j < 5 ? j : j - 5))) & 0x00070007u) | magic;
+  } else {
+    c = magic;  // bf16(128 + code)
+    if constexpr ((BITS & 4) != 0) c |= (m[j >> 2] >> (4 * (j & 3))) & 0x000F000Fu;
+    if constexpr ((BITS & 2) != 0)
+      c |= shift_down(m[U::I2], 2 * j - U::O2) & (0x00030003u << U::O2);
+    if constexpr ((BITS & 1) != 0)
+      c |= shift_down(m[U::I1], j - U::O1) & (0x00010001u << U::O1);
+  }
+  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&c);
+  return as_u32(__hsub2(v, __floats2bfloat162_rn(128.f, 128.f)));  // exact
+}
+
+// The codes of rows r0 .. r0 + 3 (r0 % 4 == 0) of a 32-row unit whose BITS
+// words are w[0 .. BITS-1], row r0 + i in byte i: K5's zeros of a lane's 4
+// neighbouring columns, each plane's (stitched: the unit's) 4 fields read
+// with one shift.
+template <int BITS, bool PLANAR>
+__device__ __forceinline__ uint32_t unit_quad(const uint32_t* w, int r0) {
+  const auto bytes = [](uint32_t v, int width) {  // 4 fields of width bits to 4 bytes
+    const uint32_t mask = (1u << width) - 1u;
+    return (v & mask) | ((v >> width) & mask) << 8 | ((v >> 2 * width) & mask) << 16 |
+           ((v >> 3 * width) & mask) << 24;
+  };
+  if constexpr (!PLANAR) {  // 12 bits from bit 3 r0 of the 96-bit stream
+    const int bit = 3 * r0, i = bit >> 5;
+    return bytes(__funnelshift_r(w[i], w[i < 2 ? i + 1 : 2], bit & 31), 3);
+  } else {
+    uint32_t q = 0;
+    int off = 0;
+#pragma unroll
+    for (int width = 4; width >= 1; width >>= 1) {
+      if (BITS & width) {  // 4 width fields from bit width r0 of the plane, in one word
+        const int bit = width * r0;
+        q |= bytes(w[off + (bit >> 5)] >> (bit & 31), width) << off;
+        off += width;
+      }
+    }
+    return q;
+  }
+}
+
 // The scales' type: fp16 as the modules store them (K1, K2, K3, K6, K7),
 // bf16 in K10's expert stacks.
 template <class Z>
@@ -336,15 +506,21 @@ __device__ __forceinline__ int tile_offset(int c, int N) {
   return GATE_UP && c >= kDecodeCols / 2 ? N / 2 + c - kDecodeCols / 2 : c;
 }
 
-// Z is GroupZeros<BITS> (K3), UniformZero (K1; K7 with FOLD), GateUpPairs
+// Z is GroupZeros<BITS> (K3), UniformZero (K1; K7 with FOLD), Units<...>
+// (K4, K5 at 3, 5, 6 and 7 bits), GateUpPairs
 // (K2's gate/up pass, out [M, N/2]), DequantFirst<either zeros> (K6), or
 // MoeGateUp / MoeDown of UniformZero or DequantFirst<UniformZero> (K10's
 // passes: M = bm rows of the slot blockIdx.y, scales bf16); NT n-tiles of 8
 // tokens (M <= 8 * NT). Grid: (column tiles) x split blocks, clusters of
 // split along x (K10: by S slots along y); dynamic shared memory
 // DecodeShape<BITS>::smem_bytes(M) (K6: k6_smem_bytes(M, g)).
+//
+// K4's and K5's one-n-tile instantiations ask for 5 blocks an SM (at most 64
+// registers; 5 to 7 bits would take 68-80 and leave 4): at M <= 8 the plan
+// gives Llama-3-8B's qkv projection 576 blocks, one wave of 5 an SM. Every
+// other instantiation asks for none (0), as before K4 and K5 ran here.
 template <int BITS, int NT, class Z, bool FOLD>
-__global__ void __launch_bounds__(kDecodeThreads)
+__global__ void __launch_bounds__(kDecodeThreads, units<Z>::value && NT == 1 ? 5 : 0)
     qmm_decode_kernel(const __nv_bfloat16* __restrict__ x, int M, int K,
                       const uint32_t* __restrict__ qw, const decode_scale_t<Z>* __restrict__ sc,
                       int N, int g, Z zero, __nv_bfloat16* __restrict__ out) {
@@ -364,7 +540,13 @@ __global__ void __launch_bounds__(kDecodeThreads)
   constexpr bool kGateUp = std::is_same<Z, GateUpPairs>::value || moe_pass<Z>::gate_up;
   static_assert(!(FOLD && (kPerGroupZeros || kGateUp || kDequantFirst || kMoe)),
                 "K7 takes K1's operands");
+  // K4 and K5: 32-row units of BITS words; K5 reads its zeros from the stage
+  constexpr bool kUnits = units<Z>::value, kPlanar = units<Z>::planar;
+  constexpr bool kUnitZeros =
+      kUnits && !std::is_same<typename units<Z>::zeros, UniformZero>::value;
+  static_assert(kUnits == D::UNITS, "3, 5, 6 and 7 bits are K4's and K5's units");
   constexpr int KP = kDecodeKParts < D::ITS ? kDecodeKParts : D::ITS;  // K shares in use
+  static_assert(!kUnits || KP == 2, "K4's and K5's lanes take half of each unit");
   extern __shared__ __align__(128) unsigned char smem[];
 
   // K10: the slot's expert; a slot past the used ones leaves with its whole
@@ -417,14 +599,14 @@ __global__ void __launch_bounds__(kDecodeThreads)
       if (c >= ST) mbar_wait(bars + 8 * (ST + s), ((c / ST) - 1) & 1);
       const uint32_t st = smem_addr(ring + s * stage_bytes);
       const int k0 = k_begin + c * kChunk;
+      const int wr0 = kUnits ? k0 / 32 * BITS : k0 / PF;  // the chunk's first word row
       static_assert(D::WR * (kDecodeCols / 4) % PT == 0, "whole rounds of pieces");
 #pragma unroll
       for (int i0 = 0; i0 < D::WR * (kDecodeCols / 4); i0 += PT) {  // 4 columns of a word row
         const int r = (i0 + pl) / (kDecodeCols / 4), q = (i0 + pl) % (kDecodeCols / 4);
         const int dq = tile_offset<kGateUp>(4 * q, N);
         if (c0 + dq < N)  // N % 8 == 0: a 4-column piece is whole or absent
-          cp_async16(st + 4 * (r * kDecodeRowWords + 4 * q),
-                     qw + (size_t)(k0 / PF + r) * N + c0 + dq);
+          cp_async16(st + 4 * (r * D::ROWW + 4 * q), qw + (size_t)(wr0 + r) * N + c0 + dq);
       }
       if constexpr (kChunkGroups) {  // the chunk's 128/g scale rows, then its qzeros rows
         const int rows = kChunk / g, g0 = k0 / g;
@@ -447,6 +629,12 @@ __global__ void __launch_bounds__(kDecodeThreads)
         if (pl < kDecodeCols / 8 && c0 + tile_offset<kGateUp>(8 * pl, N) < N)
           cp_async16(st + D::W_BYTES + 16 * pl,
                      sc + (size_t)grp * N + c0 + tile_offset<kGateUp>(8 * pl, N));
+        if constexpr (kUnitZeros) {  // the tile's 2 units of BITS words
+          const int wi = pl - kDecodeCols / 8, w0 = c0 / 32 * BITS;
+          if (wi >= 0 && wi < 2 * BITS && w0 + wi < zero.words)
+            cp_async4(st + D::W_BYTES + D::S_BYTES + 4 * wi,
+                      zero.qz + (size_t)grp * zero.words + w0 + wi);
+        }
         if constexpr (kPerGroupZeros) {
           const int wi = pl - kDecodeCols / 8;
           if (wi >= 0 && wi < kDecodeCols / PF && c0 / PF + wi < N / PF)
@@ -461,7 +649,9 @@ __global__ void __launch_bounds__(kDecodeThreads)
           cp_async16_or_zero(st + x_at + 4 * (m * D::XROW + 4 * q),
                              x + (size_t)(r < 0 ? 0 : r) * K + k0 + 8 * q, r < 0);
         } else {
-          cp_async16(st + x_at + 4 * (m * D::XROW + 4 * q), x + (size_t)m * K + k0 + 8 * q);
+          // K4, K5: a 32-row unit (4 pieces) every XUNIT words
+          const int xq = kUnits ? q + q / 4 : q;
+          cp_async16(st + x_at + 4 * (m * D::XROW + 4 * xq), x + (size_t)m * K + k0 + 8 * q);
         }
       }
       cp_async_arrive(bars + 8 * s);
@@ -488,7 +678,15 @@ __global__ void __launch_bounds__(kDecodeThreads)
   // bf16(z + 128) (8 bits: bf16(z)) of a uniform zero
   const int g_shift = __ffs(g) - 1;
   constexpr float kZeroOffset = BITS == 8 ? 0.f : 128.f;
-  const __nv_bfloat162 zoff_c = __float2bfloat162_rn(zero.one(0u, 0) + kZeroOffset);
+  __nv_bfloat162 zoff_c;
+  if constexpr (kDequantFirst) zoff_c = __float2bfloat162_rn(zero.one(0u, 0) + kZeroOffset);
+  // K4, K5: bf16 (128, 128) as unit_pair ORs it in, in a register, so that
+  // one LOP3 masks a pair and sets it; with both the mask and 0x43004300 as
+  // immediates it takes two. A constant would be folded by ptxas even behind
+  // inline asm (a mov in the PTX it reads); a kernel argument cannot be, so
+  // the high bit of M (M >= 1: 0) is ORed in. chip_smoke.py's build phase
+  // fails if the 3-bit loop's LOP3 count grows back.
+  const uint32_t magic = 0x43004300u | ((uint32_t)M >> 31);
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -511,71 +709,107 @@ __global__ void __launch_bounds__(kDecodeThreads)
       const float2 hi = to_float2(*reinterpret_cast<const SC2*>(&h2.y));
       sf[0] = lo.x; sf[1] = lo.y; sf[2] = hi.x; sf[3] = hi.y;
     }
-#pragma unroll
-    for (int i2 = 0; i2 < D::ITS / KP; ++i2) {
-      const int wr = 4 * (KP * i2 + kp) + t;  // the lane's word row: K-rows wr*PF .. wr*PF + PF - 1
-      const uint4 q4 = *reinterpret_cast<const uint4*>(ws + wr * kDecodeRowWords + cw);
-      const uint32_t q[4] = {q4.x, q4.y, q4.z, q4.w};
-      __nv_bfloat162 s6[4], z6[4];  // K6: bf16(s) and the zero offset of the 4 columns
-      if constexpr (kDequantFirst) {
-        const int gi = (wr * PF) >> g_shift;  // the word row's group in the chunk
-        const uint2 h2 = *reinterpret_cast<const uint2*>(ss + gi * kDecodeCols + cw);
-        const float2 lo = to_float2(*reinterpret_cast<const SC2*>(&h2.x));
-        const float2 hi = to_float2(*reinterpret_cast<const SC2*>(&h2.y));
-        s6[0] = __float2bfloat162_rn(lo.x); s6[1] = __float2bfloat162_rn(lo.y);
-        s6[2] = __float2bfloat162_rn(hi.x); s6[3] = __float2bfloat162_rn(hi.y);
-        if constexpr (kPerGroupZeros) {
-          const uint32_t zw = reinterpret_cast<const uint32_t*>(
-              st + D::W_BYTES + (kChunk >> g_shift) * D::S_BYTES + gi * D::ZROW_BYTES)[cw / PF];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            z6[i] = __float2bfloat162_rn(zero.one(zw, cw + i) + kZeroOffset);
-        } else {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) z6[i] = zoff_c;
-        }
-      }
-      uint32_t xv[NT][NX];
+    if constexpr (kUnits) {
+      // lane t: unit t of the chunk, K-rows 32t + 8kp + j and 32t + 8kp + 16 + j
+      // (pair j, j = 0..7) of its 4 columns; mma step s2 takes pairs 2s2 (K-slots
+      // 2t, 2t+1) and 2s2 + 1 (2t+8, 2t+9), and x's B fragment the same rows
+      uint32_t mw[4][UnitShape<BITS, kPlanar>::NW];
+      unit_words<BITS, kPlanar>(ws + t * BITS * D::ROWW + cw, D::ROWW, kp, mw);
+      uint32_t xa[NT][4], xb[NT][4];  // rows 8kp .. 8kp + 7 and 8kp + 16 .. of unit t
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         const int m = 8 * nt + gid;
-        lds_x<NX>(xs + m * D::XROW + wr * NX, m < M, xv[nt]);
+        const uint32_t* xr = xs + m * D::XROW + t * D::XUNIT + 4 * kp;
+        lds_x<4>(xr, m < M, xa[nt]);
+        lds_x<4>(xr + 8, m < M, xb[nt]);
       }
 #pragma unroll
-      for (int s2 = 0; s2 < NS; ++s2) {
+      for (int s2 = 0; s2 < 4; ++s2) {
         uint32_t b0[NT], b1[NT];
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
-          // K-slots 2t, 2t+1 hold fields 2s2, 2s2 + PF/2; 2t+8, 2t+9 fields 2s2+1, +PF/2
-          b0[nt] = __byte_perm(xv[nt][s2], xv[nt][s2 + NS], 0x5410);
-          b1[nt] = __byte_perm(xv[nt][s2], xv[nt][s2 + NS], 0x7632);
-          if constexpr (!kDequantFirst) mma_bf16(x1[nt], ones, b0[nt], b1[nt]);
+          b0[nt] = __byte_perm(xa[nt][s2], xb[nt][s2], 0x5410);
+          b1[nt] = __byte_perm(xa[nt][s2], xb[nt][s2], 0x7632);
+          mma_bf16(x1[nt], ones, b0[nt], b1[nt]);
         }
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          uint32_t a[4];
-          if constexpr (FOLD) {
-            a[0] = fold_pair<BITS>(q[2 * j], 2 * s2, sf[2 * j]);
-            a[1] = fold_pair<BITS>(q[2 * j + 1], 2 * s2, sf[2 * j + 1]);
-            a[2] = fold_pair<BITS>(q[2 * j], 2 * s2 + 1, sf[2 * j]);
-            a[3] = fold_pair<BITS>(q[2 * j + 1], 2 * s2 + 1, sf[2 * j + 1]);
-          } else if constexpr (kDequantFirst) {
-            a[0] = dq_pair<BITS>(q[2 * j], 2 * s2, z6[2 * j], s6[2 * j]);
-            a[1] = dq_pair<BITS>(q[2 * j + 1], 2 * s2, z6[2 * j + 1], s6[2 * j + 1]);
-            a[2] = dq_pair<BITS>(q[2 * j], 2 * s2 + 1, z6[2 * j], s6[2 * j]);
-            a[3] = dq_pair<BITS>(q[2 * j + 1], 2 * s2 + 1, z6[2 * j + 1], s6[2 * j + 1]);
+          const uint32_t a[4] = {unit_pair<BITS, kPlanar>(mw[2 * j], 2 * s2, magic),
+                                 unit_pair<BITS, kPlanar>(mw[2 * j + 1], 2 * s2, magic),
+                                 unit_pair<BITS, kPlanar>(mw[2 * j], 2 * s2 + 1, magic),
+                                 unit_pair<BITS, kPlanar>(mw[2 * j + 1], 2 * s2 + 1, magic)};
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) mma_bf16(p[j][nt], a, b0[nt], b1[nt]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i2 = 0; i2 < D::ITS / KP; ++i2) {
+        // the lane's word row: K-rows wr*PF .. wr*PF + PF - 1
+        const int wr = 4 * (KP * i2 + kp) + t;
+        const uint4 q4 = *reinterpret_cast<const uint4*>(ws + wr * kDecodeRowWords + cw);
+        const uint32_t q[4] = {q4.x, q4.y, q4.z, q4.w};
+        __nv_bfloat162 s6[4], z6[4];  // K6: bf16(s) and the zero offset of the 4 columns
+        if constexpr (kDequantFirst) {
+          const int gi = (wr * PF) >> g_shift;  // the word row's group in the chunk
+          const uint2 h2 = *reinterpret_cast<const uint2*>(ss + gi * kDecodeCols + cw);
+          const float2 lo = to_float2(*reinterpret_cast<const SC2*>(&h2.x));
+          const float2 hi = to_float2(*reinterpret_cast<const SC2*>(&h2.y));
+          s6[0] = __float2bfloat162_rn(lo.x); s6[1] = __float2bfloat162_rn(lo.y);
+          s6[2] = __float2bfloat162_rn(hi.x); s6[3] = __float2bfloat162_rn(hi.y);
+          if constexpr (kPerGroupZeros) {
+            const uint32_t zw = reinterpret_cast<const uint32_t*>(
+                st + D::W_BYTES + (kChunk >> g_shift) * D::S_BYTES + gi * D::ZROW_BYTES)[cw / PF];
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              z6[i] = __float2bfloat162_rn(zero.one(zw, cw + i) + kZeroOffset);
           } else {
-            a[0] = code_pair<BITS>(q[2 * j], 2 * s2);
-            a[1] = code_pair<BITS>(q[2 * j + 1], 2 * s2);
-            a[2] = code_pair<BITS>(q[2 * j], 2 * s2 + 1);
-            a[3] = code_pair<BITS>(q[2 * j + 1], 2 * s2 + 1);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) z6[i] = zoff_c;
           }
+        }
+        uint32_t xv[NT][NX];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int m = 8 * nt + gid;
+          lds_x<NX>(xs + m * D::XROW + wr * NX, m < M, xv[nt]);
+        }
+#pragma unroll
+        for (int s2 = 0; s2 < NS; ++s2) {
+          uint32_t b0[NT], b1[NT];
 #pragma unroll
           for (int nt = 0; nt < NT; ++nt) {
-            if constexpr (FOLD || kDequantFirst)
-              mma_bf16(acc[j][nt], a, b0[nt], b1[nt]);
-            else
-              mma_bf16(p[j][nt], a, b0[nt], b1[nt]);
+            // K-slots 2t, 2t+1 hold fields 2s2, 2s2 + PF/2; 2t+8, 2t+9 fields 2s2+1, +PF/2
+            b0[nt] = __byte_perm(xv[nt][s2], xv[nt][s2 + NS], 0x5410);
+            b1[nt] = __byte_perm(xv[nt][s2], xv[nt][s2 + NS], 0x7632);
+            if constexpr (!kDequantFirst) mma_bf16(x1[nt], ones, b0[nt], b1[nt]);
+          }
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            uint32_t a[4];
+            if constexpr (FOLD) {
+              a[0] = fold_pair<BITS>(q[2 * j], 2 * s2, sf[2 * j]);
+              a[1] = fold_pair<BITS>(q[2 * j + 1], 2 * s2, sf[2 * j + 1]);
+              a[2] = fold_pair<BITS>(q[2 * j], 2 * s2 + 1, sf[2 * j]);
+              a[3] = fold_pair<BITS>(q[2 * j + 1], 2 * s2 + 1, sf[2 * j + 1]);
+            } else if constexpr (kDequantFirst) {
+              a[0] = dq_pair<BITS>(q[2 * j], 2 * s2, z6[2 * j], s6[2 * j]);
+              a[1] = dq_pair<BITS>(q[2 * j + 1], 2 * s2, z6[2 * j + 1], s6[2 * j + 1]);
+              a[2] = dq_pair<BITS>(q[2 * j], 2 * s2 + 1, z6[2 * j], s6[2 * j]);
+              a[3] = dq_pair<BITS>(q[2 * j + 1], 2 * s2 + 1, z6[2 * j + 1], s6[2 * j + 1]);
+            } else {
+              a[0] = code_pair<BITS>(q[2 * j], 2 * s2);
+              a[1] = code_pair<BITS>(q[2 * j + 1], 2 * s2);
+              a[2] = code_pair<BITS>(q[2 * j], 2 * s2 + 1);
+              a[3] = code_pair<BITS>(q[2 * j + 1], 2 * s2 + 1);
+            }
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) {
+              if constexpr (FOLD || kDequantFirst)
+                mma_bf16(acc[j][nt], a, b0[nt], b1[nt]);
+              else
+                mma_bf16(p[j][nt], a, b0[nt], b1[nt]);
+            }
           }
         }
       }
@@ -583,7 +817,13 @@ __global__ void __launch_bounds__(kDecodeThreads)
     if (!kDequantFirst && --left == 0) {  // the group ends with this chunk
       left = g / kChunk;
       float zs[4];  // z * s of the 4 columns, exact in f32
-      if constexpr (kPerGroupZeros) {
+      if constexpr (kUnitZeros) {  // rows 4 gid .. 4 gid + 3 of the half's unit
+        const uint32_t q = unit_quad<BITS, kPlanar>(
+            reinterpret_cast<const uint32_t*>(st + D::W_BYTES + D::S_BYTES) + half * BITS,
+            4 * gid);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) zs[i] = (float)((q >> (8 * i)) & 0xFFu) * sf[i];
+      } else if constexpr (kPerGroupZeros) {
         const uint32_t zw =
             reinterpret_cast<const uint32_t*>(st + D::W_BYTES + D::S_BYTES)[cw / PF];
 #pragma unroll
@@ -777,6 +1017,21 @@ int launch_decode(const void* x, int M, int K, const void* qw, const void* sc, i
                 : launch_clusters(qmm_decode_kernel<BITS, 2, Z, FOLD>,
                                   decode_smem_attribute<BITS, 2, Z, FOLD>(), grid, split, smem,
                                   stream, x, M, K, qw, sc, N, g, zero, out);
+}
+
+// K1, K3, K4, K5 and K7: the decode kernel at M <= 16 (split from the launch
+// plan), launch_by_m's tiles, from kernel_of, beyond (K4 and K5: on zero,
+// Units' zeros). launch_by_m picks Tile<1, 1> only at M <= 16, so the
+// callers' kernel_of maps that tile to Tile<4, 1>'s kernel, which it never
+// launches, and emits no decode tile of its own.
+template <int BITS, class Z, bool FOLD, class KernelOf>
+int dispatch_decode_or_tile(KernelOf kernel_of, const void* x, int M, int K, const void* qw,
+                            const void* sc, int N, int g, Z zero, int split, void* out,
+                            cudaStream_t stream) {
+  if (M <= kDecodeMaxM)
+    return launch_decode<BITS, Z, FOLD>(x, M, K, qw, sc, N, g, zero, split, out, stream);
+  launch_by_m(kernel_of, x, M, K, qw, sc, N, g, zero, out, stream);
+  return (int)cudaGetLastError();
 }
 
 // Launches one of K10's passes (Z = MoeGateUp<...> or MoeDown<...>) over the

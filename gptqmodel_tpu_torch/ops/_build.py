@@ -126,9 +126,10 @@ def lib() -> ctypes.CDLL:
             handle.gqt_decode_smem_bytes.restype = i
             handle.gqt_qmm.argtypes = [vp, i, i, vp, vp, vp, i, i, f, i, i, vp, vp]
             handle.gqt_qmm.restype = i
-            handle.gqt_qmatmul_planes.argtypes = [vp, i, i, vp, vp, i, i, f, i, i, vp, vp]
+            handle.gqt_qmatmul_planes.argtypes = [vp, i, i, vp, vp, i, i, f, i, i, i, vp, vp]
             handle.gqt_qmatmul_planes.restype = i
-            handle.gqt_qmatmul_planes_asym.argtypes = [vp, i, i, vp, vp, vp, i, i, i, i, vp, vp]
+            handle.gqt_qmatmul_planes_asym.argtypes = [vp, i, i, vp, vp, vp, i, i, i, i, i, vp,
+                                                       vp]
             handle.gqt_qmatmul_planes_asym.restype = i
             handle.gqt_qmlp.argtypes = [vp, i, i, i, vp, vp, f, vp, vp, f] + [i] * 4 + [vp] * 3
             handle.gqt_qmlp.restype = i

@@ -4,8 +4,8 @@ K1, K3 and K7 (``csrc/qmatmul.cu``, arithmetic in ``csrc/qmm_common.cuh``)
 read the GPTQ interchange layout directly and take contiguous groups of a
 multiple of 128, 2, 4 or 8 bits, bf16 activations and fp16 scales. At
 M <= 16 they run the decode kernel (``csrc/qmm_decode.cuh``: a
-shared-memory ring, K split across a thread-block cluster), as do both
-passes of K2 (``ops/qmlp.py``) and K6 where its groups divide 128
+shared-memory ring, K split across a thread-block cluster), as do K4 and
+K5, both passes of K2 (``ops/qmlp.py``) and K6 where its groups divide 128
 (``qmm_decode_supported``); its launch plan, ``decode_plan``, is computed
 here and handed to the C entry.
 
@@ -41,7 +41,9 @@ here and handed to the C entry.
   the TPU kernels read a plane-split runtime repack of them
   (``pack.repack_rt_planes``), which the port has not. Their arithmetic is
   K1's and K3's: per-group partial dots of the codes, then the zero-point
-  correction.
+  correction. At M <= 16 they run the decode kernel on 32-row units of
+  ``bits`` words (``Z = Units``), above it ``csrc/qmatmul_planes.cu``'s
+  register tile.
 
 The TPU kernels' ``rt_supported`` (``:456``) also asks ``K % (8*g) == 0``,
 for their 8-group K tiles, and ``K % (16*g) == 0`` at 3, 5, 6 and 7 bits,
@@ -74,10 +76,10 @@ from gptqmodel_tpu_torch.ops.pack import unpack_qweight, unpack_qzeros
 KERNEL_BITS = (2, 4, 8)
 PLANE_BITS = (3, 5, 6, 7)  # K4 and K5
 
-# The decode kernel of K1, K3, K6, K7 and K2 (csrc/qmm_decode.cuh) at M <=
-# DECODE_MAX_M: a block owns DECODE_COLS columns and a share of K in whole
-# groups (K6's groups that divide DECODE_CHUNK: in whole chunks); the blocks
-# of one column tile form a cluster of at most DECODE_MAX_SPLIT (the
+# The decode kernel of K1, K3, K4, K5, K6, K7 and K2 (csrc/qmm_decode.cuh)
+# at M <= DECODE_MAX_M: a block owns DECODE_COLS columns and a share of K in
+# whole groups (K6's groups that divide DECODE_CHUNK: in whole chunks); the
+# blocks of one column tile form a cluster of at most DECODE_MAX_SPLIT (the
 # header's kDecodeMaxM, kDecodeCols, kChunk and kDecodeMaxSplit). The kernel
 # sizes its own shared memory; the plan gives it only the cluster size.
 DECODE_MAX_M = 16
@@ -139,10 +141,10 @@ def _sm_count(index: int) -> int:
 
 
 def _decode_split(x, qweight, scales, *, group_size, name) -> int:
-    """The decode plan's split for the C entry of K1, K3, K6, K7 or one pass
-    of K2 (``x [M, K] @ qweight [., N]``), or 0 above ``DECODE_MAX_M`` rows,
-    where K1's tiles run. A weight or scale pointer that the decode kernel
-    cannot copy in 16-byte pieces raises."""
+    """The decode plan's split for the C entry of K1, K3, K4, K5, K6, K7 or
+    one pass of K2 (``x [M, K] @ qweight [., N]``), or 0 above
+    ``DECODE_MAX_M`` rows, where their register tiles run. A weight or scale
+    pointer that the decode kernel cannot copy in 16-byte pieces raises."""
     M, K = x.shape
     if M > DECODE_MAX_M:
         return 0
@@ -431,9 +433,11 @@ def qmatmul_planes(x, qweight, scales, *, bits, group_size, zero_const, planar):
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     if M == 0:
         return out
-    rc = _build.lib().gqt_qmatmul_planes(
+    lib = _build.lib()
+    split = _decode_split(x, qweight, scales, group_size=g, name="K4")
+    rc = lib.gqt_qmatmul_planes(
         x.data_ptr(), M, K, qweight.data_ptr(), scales.data_ptr(), N, g,
-        float(zero_const), bits, int(planar), out.data_ptr(),
+        float(zero_const), bits, int(planar), split, out.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(rc, "qmatmul_planes")
@@ -465,9 +469,12 @@ def qmatmul_planes_asym(x, qweight, scales, qzeros, *, bits, group_size, planar)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     if M == 0:
         return out
-    rc = _build.lib().gqt_qmatmul_planes_asym(
+    lib = _build.lib()
+    split = _decode_split(x, qweight, scales, group_size=g, name="K5")
+    rc = lib.gqt_qmatmul_planes_asym(
         x.data_ptr(), M, K, qweight.data_ptr(), scales.data_ptr(), qzeros.data_ptr(), N, g,
-        bits, int(planar), out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
+        bits, int(planar), split, out.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(rc, "qmatmul_planes_asym")
     _build.LAUNCHES["qmatmul_planes_asym"] += 1

@@ -16,7 +16,6 @@ times, so they differ between any two builds; cuobjdump's lines do not.
 from __future__ import annotations
 
 import json
-import re
 import shutil
 import subprocess
 import sys
@@ -26,20 +25,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import template_args  # noqa: E402
+from chip_smoke import readable  # noqa: E402
 
 BUILD = ("import sys; sys.path.insert(0, '.'); "
          "from gptqmodel_tpu_torch.ops import _build; print(_build.build())")
-
-
-def readable(mangled: str) -> str:
-    m = re.match(r"_ZN3gqt(\d+)(\w+)", mangled)
-    if m is None:
-        return mangled
-    n = int(m.group(1))
-    name, rest = m.group(2)[:n], m.group(2)[n:]
-    args = template_args(rest.split("EEv")[0]) if rest.startswith("I") else []
-    return f"{name}<{','.join(args)}>" if args else name
 
 
 def usage(checkout: Path) -> dict:

@@ -5,11 +5,11 @@
 
 For each checkout in the order given (say ``build/parent . . build/parent``,
 so that both versions meet the card's drift alike), a fresh process with that
-checkout's package first on ``sys.path`` builds its kernels into its own
-``build/`` and runs its ``qmoe_mlp_e2e`` on the K10 inputs of this
-checkout's ``chip_smoke.py`` (``k10_inputs``: Qwen3-30B-A3B's stacks and
-routes from one seed, N = 1, 8 and 1024 tokens, the stacks rotated through
-copies past the L2), the rt contract at every N and the ic one at N = 8.
+checkout's package first on ``sys.path`` (``per_checkout.py``) builds its
+kernels into its own ``build/`` and runs its ``qmoe_mlp_e2e`` on the K10
+inputs of this checkout's ``chip_smoke.py`` (``k10_inputs``: Qwen3-30B-A3B's
+stacks and routes from one seed, N = 1, 8 and 1024 tokens, the stacks
+rotated through copies past the L2), the rt contract at every N and the ic one at N = 8.
 Each case is timed by ``chip_smoke.timed`` and its device time split into the
 gate|up pass, the down pass and the combine by kernel name; beside it the
 byte bound. ``--splits`` also times other cluster splits than the plan's
@@ -20,23 +20,15 @@ also in ``chiprun_out/k10_passes.jsonl``.
 from __future__ import annotations
 
 import dataclasses
-import importlib.util
 import json
-import subprocess
 import sys
 from pathlib import Path
+
+import per_checkout
 
 ROOT = Path(__file__).resolve().parents[1]
 RT_ONLY_NS = (1, 1024)  # the ic contract is timed at N = 8 only
 SPLITS = {1: ((1, 1), (2, 2), (3, 3), (4, 3), (6, 6)), 8: ((1, 1), (2, 2))}
-
-
-def chip_smoke():
-    """This checkout's ``chip_smoke.py``, whichever checkout is timed."""
-    spec = importlib.util.spec_from_file_location("k10_chip_smoke", ROOT / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def pass_of(cs, name: str) -> str:
@@ -53,7 +45,7 @@ def pass_of(cs, name: str) -> str:
 def worker(splits: bool, bms: dict) -> None:
     import torch
 
-    cs = chip_smoke()
+    cs = per_checkout.chip_smoke()
     from gptqmodel_tpu_torch.ops import qmoe
 
     gu, dn, router, g = cs.moe_stacks(torch.device("cuda"), cs.SEED + 300)
@@ -93,7 +85,7 @@ def worker(splits: bool, bms: dict) -> None:
 def main() -> int:
     args = sys.argv[1:]
     if args and args[0] == "--worker":
-        sys.path.insert(0, str(Path.cwd()))
+        per_checkout.worker_path()
         worker(splits=args[1] == "1", bms=json.loads(args[2]))
         return 0
     splits = "--splits" in args
@@ -106,25 +98,11 @@ def main() -> int:
     from gptqmodel_tpu_torch.ops.qmoe import slot_rows
     from gptqmodel_tpu_torch.utils.testing import QWEN3_30B_A3B_CONFIG as C
 
-    cs = chip_smoke()
+    cs = per_checkout.chip_smoke()
     bms = {str(M): slot_rows(M)
            for M in (N * C["num_experts_per_tok"] for N in cs.MOE_E2E_NS)}
-    out = ROOT / "chiprun_out"
-    out.mkdir(exist_ok=True)
-    rc = 0
-    with open(out / "k10_passes.jsonl", "a") as log:
-        for co in checkouts:
-            res = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--worker",
-                                  "1" if splits else "0", json.dumps(bms)],
-                                 cwd=Path(co).resolve(), capture_output=True, text=True)
-            for line in res.stdout.splitlines():
-                if line.startswith("{"):
-                    print(line, flush=True)
-                    log.write(line + "\n")
-            if res.returncode:
-                print(f"k10_passes: {co} failed:\n{res.stderr[-4000:]}", file=sys.stderr)
-                rc = 1
-    return rc
+    return per_checkout.run(__file__, checkouts, ["1" if splits else "0", json.dumps(bms)],
+                            "k10_passes.jsonl")
 
 
 if __name__ == "__main__":

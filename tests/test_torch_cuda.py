@@ -1147,41 +1147,96 @@ def _planes_call(p, x, plain=False):
     return fn(x, p.qweight, p.scales, p.qzeros, **kw)
 
 
+# (K, N): ten groups that split unevenly between the register tile's 4 warps
+# and over a cluster of 7 at decode; seven groups and a column tile of 32
+# (N % 64 == 32) at decode
+PLANES_SHAPES = {"ten_groups": (1280, 384), "seven_groups_ragged": (896, 352)}
+
+
 @pytest.mark.parametrize("bits,planar", PLANE_LAYOUTS)
 @pytest.mark.parametrize("sym", [True, False])
-@pytest.mark.parametrize("M", [1, 8, 40, 300])
-def test_qmatmul_planes_kernels_match_plain(cuda_device, bits, planar, sym, M):
+@pytest.mark.parametrize("M,shape", [(M, "ten_groups") for M in (1, 5, 8, 9, 16, 40, 300)]
+                         + [(M, "seven_groups_ragged") for M in (1, 9, 16)])
+def test_qmatmul_planes_kernels_match_plain(cuda_device, bits, planar, sym, M, shape):
     """K4 (one zero point) and K5 (zeros per group and column) against their
     plain versions: exact products and z*s, f32 sums in another order, one
-    rounding to bf16: 1e-3 relative, and the same bits on every run. K = 1280
-    splits 10 groups unevenly between the 4 warps; M = 1 takes one row tile,
-    8 and 40 four, 300 the 32 x 32 tiles."""
-    rng = np.random.default_rng(bits * 100 + planar * 10 + sym + M)
-    p = _planes_case(rng, bits, planar, sym, 1280, 384, 128, cuda_device)
-    x = _x(rng, M, 1280, cuda_device)
+    rounding to bf16: 1e-3 relative, and the same bits on every run. M <= 16
+    runs the decode kernel (M = 1..8 one n-tile of tokens, 9 and 16 two); 40
+    the register tile's four row tiles, 300 its 32 x 32 tiles."""
+    K, N = PLANES_SHAPES[shape]
+    rng = np.random.default_rng(bits * 100 + planar * 10 + sym + M if shape == "ten_groups"
+                                else [bits, planar, sym, M, K])
+    p = _planes_case(rng, bits, planar, sym, K, N, 128, cuda_device)
+    x = _x(rng, M, K, cuda_device)
     name = "qmatmul_planes" if sym else "qmatmul_planes_asym"
     before = _build.LAUNCHES[name]
     y = _planes_call(p, x)
     ref = _planes_call(p, x, plain=True)
     torch.cuda.synchronize()
     assert _build.LAUNCHES[name] == before + 1
-    assert y.dtype == torch.bfloat16 and y.shape == (M, 384)
+    assert y.dtype == torch.bfloat16 and y.shape == (M, N)
     assert _rel(y, ref) <= 1e-3
     assert all(torch.equal(y, _planes_call(p, x)) for _ in range(2))
 
 
 @pytest.mark.parametrize("bits,planar", PLANE_LAYOUTS)
 @pytest.mark.parametrize("sym", [True, False])
-def test_qmatmul_planes_exact_inputs_give_equal_outputs(cuda_device, bits, planar, sym):
+@pytest.mark.parametrize("M", [1, 8, 9, 16, 40])
+def test_qmatmul_planes_exact_inputs_give_equal_outputs(cuda_device, bits, planar, sym, M):
     """Integer activations and power-of-two scales: every product, z*s and
     partial sum is exact, so kernel and plain version agree bit for bit; a
-    code or zero read from the wrong bits of its unit would break that. Two
-    groups of 256 rows."""
-    rng = np.random.default_rng(40 + bits + 10 * planar + sym)
+    code or zero read from the wrong bits of its unit, or x from the wrong
+    rows, would break that. Two groups of 256 rows; M <= 16 on the decode
+    kernel, 40 on the register tile."""
+    rng = np.random.default_rng(40 + bits + 10 * planar + sym if M == 8
+                                else [40, bits, planar, sym, M])
     p = _planes_case(rng, bits, planar, sym, 512, 256, 256, cuda_device)
     p.scales = _pow2_scales(rng, p, cuda_device)
-    x = _int_x(rng, 8, 512, cuda_device)
+    x = _int_x(rng, M, 512, cuda_device)
     assert torch.equal(_planes_call(p, x), _planes_call(p, x, plain=True))
+
+
+def test_qmatmul_planes_decode_refuses_a_split_or_pointers_it_does_not_take(cuda_device,
+                                                                            monkeypatch):
+    """K4's and K5's C entries refuse a cluster split outside 1 .. min(8,
+    K / g) at M <= 16; an unaligned weight or scale pointer raises before the
+    launch."""
+    from gptqmodel_tpu_torch.ops import qmatmul as qmatmul_mod
+
+    rng = np.random.default_rng(45)
+    mods = [_planes_case(rng, 3, False, True, 896, 256, 128, cuda_device),  # 7 groups
+            _planes_case(rng, 7, True, False, 896, 256, 128, cuda_device)]
+    x = _x(rng, 8, 896, cuda_device)
+    plan = qmatmul_mod.decode_plan
+    for split in (0, 8, 9):
+        monkeypatch.setattr(qmatmul_mod, "decode_plan",
+                            lambda *a, s=split: dataclasses.replace(plan(*a), split=s))
+        for p in mods:
+            with pytest.raises(ValueError, match="unsupported"):
+                _planes_call(p, x)
+    monkeypatch.undo()
+    for p in mods:
+        for view in (dataclasses.replace(p, qweight=_unaligned(p.qweight)),
+                     dataclasses.replace(p, scales=_unaligned(p.scales))):
+            with pytest.raises(ValueError, match="aligned"):
+                _planes_call(view, x)
+
+
+@pytest.mark.parametrize("bits,planar", PLANE_LAYOUTS)
+@pytest.mark.parametrize("sym", [True, False])
+@pytest.mark.parametrize("M,kernel", [(1, "qmm_decode_kernel<"), (16, "qmm_decode_kernel<"),
+                                      (40, "planes_kernel<")])
+def test_qmatmul_planes_run_the_kernel_their_plan_names(cuda_device, bits, planar, sym, M,
+                                                         kernel):
+    """At M <= 16 the profiler sees only the decode kernel's ``Units``
+    instantiation of the layout; above, only the register tile."""
+    rng = np.random.default_rng([46, bits, planar, sym, M])
+    p = _planes_case(rng, bits, planar, sym, 1024, 256, 128, cuda_device)
+    x = _x(rng, M, 1024, cuda_device)
+    names = _kernel_names(lambda: _planes_call(p, x))
+    assert names and all(kernel in n for n in names), names
+    if M <= 16:
+        assert all("Units" in n for n in names), names
 
 
 def test_qmatmul_planes_refuse_what_they_do_not_take(cuda_device):

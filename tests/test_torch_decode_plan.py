@@ -1,14 +1,14 @@
-"""The launch plan of the decode kernel of K1, K3, K6, K7 and K2
+"""The launch plan of the decode kernel of K1, K3, K4, K5, K6, K7 and K2
 (``ops/qmatmul.py``, ``decode_plan``) and of K10's passes (``ops/qmoe.py``,
 ``e2e_plan``), which the wrappers hand to the C entries: invariants over
 shapes inside the kernels' contract, and the split it gives each of
 Llama-3-8B's and Qwen3-30B-A3B's projections and MoE passes on an H100.
 K6's small groups split K in 128-row chunks, and its shapes outside the
 decode contract take the register tile by the plan's rule
-(``qmm_decode_supported``). The kernel sizes its own shared memory;
-``csrc/qmm_decode.cuh`` asserts at compile time that it fits a block and
-that two blocks an SM keep 24 KB of weights in flight, and a card test
-reads the sizes from the library."""
+(``qmm_decode_supported``); K4 and K5 take the plan's split at M <= 16.
+The kernel sizes its own shared memory; ``csrc/qmm_decode.cuh`` asserts at
+compile time that it fits a block and that two blocks an SM keep 24 KB of
+weights in flight, and a card test reads the sizes from the library."""
 
 from types import SimpleNamespace
 
@@ -27,8 +27,12 @@ from gptqmodel_tpu_torch.ops.qmatmul import (
     DECODE_PLAN_SPLIT,
     H100_SMS,
     KERNEL_BITS,
+    PLANE_BITS,
     decode_blocks_per_sm,
     decode_plan,
+    qmatmul_planes,
+    qmatmul_planes_asym,
+    qmatmul_planes_supported,
     qmm,
     qmm_decode_supported,
     qmm_supported,
@@ -180,28 +184,37 @@ def test_llama3_projections_at_group32_fill_the_card(proj, M):
     assert plan.split == min(DECODE_PLAN_SPLIT, K // DECODE_CHUNK, -(-want // plan.tiles))
 
 
-def _k6_split(monkeypatch, M, K, N, bits, g, sym=True):
-    """The split that ``qmm`` hands K6's C entry for a tensor off the CPU
-    (here on the meta device, with a stand-in library)."""
+def _handed_split(monkeypatch, entry, launches, call):
+    """The split that a wrapper hands its C entry ``entry`` (the argument
+    after its bits, planar or zero point: index 10 of K4's, K5's and K6's)
+    for tensors off the CPU, here on the meta device with a stand-in
+    library: ``call(meta)`` runs the wrapper once, ``meta(shape, dtype)``
+    making its operands; ``launches`` is its ``_build.LAUNCHES`` key."""
     calls = []
 
-    def gqt_qmm(*args):
+    def stand_in(*args):
         calls.append(args)
         return 0
 
-    monkeypatch.setattr(_build, "lib", lambda: SimpleNamespace(gqt_qmm=gqt_qmm))
+    monkeypatch.setattr(_build, "lib", lambda: SimpleNamespace(**{entry: stand_in}))
     monkeypatch.setattr(qmatmul_mod, "_sm_count", lambda index: H100_SMS)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: SimpleNamespace(cuda_stream=0))
-    monkeypatch.setitem(_build.LAUNCHES, "qmm", 0)
-    meta = dict(device="meta")
-    x = torch.empty((M, K), dtype=torch.bfloat16, **meta)
-    qweight = torch.empty((K * bits // 32, N), dtype=torch.int32, **meta)
-    scales = torch.empty((K // g, N), dtype=torch.float16, **meta)
-    qzeros = torch.empty((K // g, N * bits // 32), dtype=torch.int32, **meta)
-    y = qmm(x, qweight, scales, qzeros, bits=bits, group_size=g,
-            zero_const=2.0 ** (bits - 1) if sym else -1.0)
-    assert y.shape == (M, N) and _build.LAUNCHES["qmm"] == 1 and len(calls) == 1
+    monkeypatch.setitem(_build.LAUNCHES, launches, 0)
+    call(lambda shape, dtype: torch.empty(shape, dtype=dtype, device="meta"))
+    assert _build.LAUNCHES[launches] == 1 and len(calls) == 1
     return calls[0][10]
+
+
+def _k6_split(monkeypatch, M, K, N, bits, g, sym=True):
+    """The split that ``qmm`` hands K6's C entry."""
+
+    def call(meta):
+        y = qmm(meta((M, K), torch.bfloat16), meta((K * bits // 32, N), torch.int32),
+                meta((K // g, N), torch.float16), meta((K // g, N * bits // 32), torch.int32),
+                bits=bits, group_size=g, zero_const=2.0 ** (bits - 1) if sym else -1.0)
+        assert y.shape == (M, N)
+
+    return _handed_split(monkeypatch, "gqt_qmm", "qmm", call)
 
 
 @pytest.mark.parametrize("M", [1, 8, 16])
@@ -227,8 +240,76 @@ def test_k6_shapes_outside_the_decode_contract_take_the_register_tile(monkeypatc
     assert _k6_split(monkeypatch, M, K, N, bits, g) == 0
 
 
+# ------------------------------------------------------------ K4, K5 (planes)
+
+# the layouts of K4's and K5's decode cases: 3-bit stitched, 5- and 7-bit planar
+PLANE_DECODE_LAYOUTS = [(3, False), (5, True), (7, True)]
+
+
+def _planes_split(monkeypatch, M, K, N, bits, planar, sym):
+    """The split that ``qmatmul_planes`` (``sym``) or ``qmatmul_planes_asym``
+    hands its C entry."""
+    entry = "qmatmul_planes" if sym else "qmatmul_planes_asym"
+
+    def call(meta):
+        x, qweight = meta((M, K), torch.bfloat16), meta((K * bits // 32, N), torch.int32)
+        scales = meta((K // 128, N), torch.float16)
+        kw = dict(bits=bits, group_size=128, planar=planar)
+        if sym:
+            y = qmatmul_planes(x, qweight, scales, zero_const=2.0 ** (bits - 1), **kw)
+        else:
+            y = qmatmul_planes_asym(x, qweight, scales,
+                                    meta((K // 128, N * bits // 32), torch.int32), **kw)
+        assert y.shape == (M, N)
+
+    return _handed_split(monkeypatch, "gqt_" + entry, entry, call)
+
+
+@pytest.mark.parametrize("sym", [True, False])
+@pytest.mark.parametrize("bits,planar", PLANE_DECODE_LAYOUTS)
+@pytest.mark.parametrize("proj", list(LLAMA3_8B))
+@pytest.mark.parametrize("M", [1, 8, 16])
+def test_planes_decode_shapes_hand_the_kernel_the_plan_split(monkeypatch, M, proj, bits,
+                                                              planar, sym):
+    """K4 and K5 at M <= 16 on Llama-3-8B's projections hand the C entry the
+    decode plan's split, as K1 does: their groups are whole 128-row units."""
+    K, N = LLAMA3_8B[proj]
+    assert qmatmul_planes_supported(bits, 128, K, N)
+    split = _planes_split(monkeypatch, M, K, N, bits, planar, sym)
+    assert split == decode_plan(M, K, N, 128).split >= 1
+
+
+@pytest.mark.parametrize("sym", [True, False])
+@pytest.mark.parametrize("bits,planar", PLANE_DECODE_LAYOUTS)
+@pytest.mark.parametrize("M", [17, 1024])
+def test_planes_above_sixteen_rows_take_the_register_tile(monkeypatch, M, bits, planar, sym):
+    """Above ``DECODE_MAX_M`` rows K4 and K5 hand split 0: the register tile."""
+    K, N = LLAMA3_8B["qkv"]
+    assert _planes_split(monkeypatch, M, K, N, bits, planar, sym) == 0
+
+
 # the shared memory the system keeps back for each resident block
 BLOCK_RESERVED_SMEM = 1024
+
+
+@pytest.mark.cuda
+def test_planes_rings_fit_a_block():
+    """K4's and K5's ring at 3, 5, 6 and 7 bits, as the library sizes it
+    (``gqt_decode_smem_bytes``, g = 0), fits what a block of the card may
+    take and leaves ``decode_blocks_per_sm(M)`` blocks an SM; those widths
+    have no ring of K6's groups."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the sizes come from the CUDA library")
+    props = torch.cuda.get_device_properties(0)
+    lib = _build.lib()
+    for bits in PLANE_BITS:
+        for M in range(1, DECODE_MAX_M + 1):
+            ring = lib.gqt_decode_smem_bytes(bits, M, 0)
+            assert 0 < ring <= props.shared_memory_per_block_optin
+            resident = props.shared_memory_per_multiprocessor // (ring + BLOCK_RESERVED_SMEM)
+            assert resident >= decode_blocks_per_sm(M), (bits, M, ring)
+        assert lib.gqt_decode_smem_bytes(bits, 8, 32) == -1
+        assert lib.gqt_decode_smem_bytes(bits, DECODE_MAX_M + 1, 0) == -1
 
 
 @pytest.mark.cuda
