@@ -30,8 +30,10 @@ Phases, each printing JSON lines on stdout:
    rotated through copies that exceed the 50 MB L2; K8 (``gptq_whole_solve``) at the four
    solve groups (qkv 6144 x 4096, o 4096 x 4096, gate_up 28672 x 4096, down
    4096 x 14336; g = 128, symmetric, 4-bit; Hinv from ``hessian_inverse`` of
-   a Hessian of seeded activations), run twice for identical codes, and K9
-   (``gptq_block_inner``) on the first 128-column block of each. Each case
+   a Hessian of seeded activations; ``solve_inputs``), run twice for
+   identical codes, and K9 (``gptq_block_inner``) on the first 128-column
+   block of each, each with a SHA-256 of its outputs (``digest``: equal
+   across two builds is equal bits). Each case
    prints the error, the device time of the kernel (torch.profiler), of the
    plain version (the profiler for K1 and K2; CUDA events around one call
    for the solves, whose plain versions launch thousands of small kernels)
@@ -128,7 +130,8 @@ Phases, each printing JSON lines on stdout:
    exactly 4 K8 launches per layer, no RTN fallback, finite losses, and the
    K1/K2 counts of a prefill and 15 decode steps. Printed: seconds in all
    and per layer (forward, solve, pack), peak device memory, the losses'
-   range and the saved bytes.
+   range, the saved bytes, a SHA-256 over the saved tensors and one over
+   each module's codes (``checkpoint_digests``: two builds' runs compared).
 13. ``compare-quantize``: layer 0 of that checkpoint quantized again, once
    with K8 swapped for its plain version and once through K9
    (``GPTQ_TPU_SOLVER=pallas``): per module, codes within 2e-3 of the K8
@@ -200,6 +203,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -342,6 +346,45 @@ def block_bound(out_f: int, B: int = 128) -> tuple[float, str]:
     """K9: Wb, S, Z and Hbb read once, Q, Dq, E, L written once; the
     in-block multiply-subtracts."""
     return bound(4 * (7 * out_f * B + B * B), out_f * B * (B - 1), FP32_FLOPS)
+
+
+def solve_inputs(dev, proj: str) -> dict:
+    """K8's and K9's inputs at one of Llama-3-8B's solve groups
+    (``SOLVE_SHAPES``, 4-bit, group 128, symmetric): W ~ N(0, 0.02) and the
+    inverse factor ``U`` of a Hessian of 2048 seeded activation rows (the
+    quantize loop's ``hessian_inverse``), the damp it took, K8's keyword
+    arguments, and K9's first block ``(Wb, Hbb, scales, zeros)`` with per-row
+    minmax scales broadcast over its 128 columns, rotated through copies past
+    the L2 (``block``: the list of copies)."""
+    import torch
+
+    from gptqmodel_tpu_torch.quantization.gptq import hessian_inverse
+    from gptqmodel_tpu_torch.quantization.quantizer import _minmax, _params_from_range
+
+    out_f, in_f = SOLVE_SHAPES[proj]
+    g = np.random.default_rng([SEED, 200, out_f, in_f])
+    W = torch.from_numpy(g.standard_normal((out_f, in_f), dtype=np.float32) * 0.02).to(dev)
+    X = torch.from_numpy(g.standard_normal((2048, in_f), dtype=np.float32)).to(dev)
+    U, damp = hessian_inverse((2.0 / 2048) * (X.T @ X), 0.01)
+    del X
+    Wb, Hbb = W[:, :128].contiguous(), U[:128, :128].contiguous()
+    s_col, z_col = (t[:, None].expand(out_f, 128).contiguous()
+                    for t in _params_from_range(*_minmax(Wb, True), 15, True))
+    blk = [(Wb, Hbb, s_col, z_col)]
+    blk += [tuple(t.clone() for t in blk[0])
+            for _ in range(copies_for(sum(t.nbytes for t in blk[0])) - 1)]
+    return {"out": out_f, "in": in_f, "W": W, "U": U, "damp": damp,
+            "kw": dict(maxq=15, group_size=128, sym=True), "block": blk}
+
+
+def digest(*tensors) -> str:
+    """SHA-256 over the bytes of ``tensors`` in order (None skipped): equal
+    digests from two builds are equal outputs, bit for bit."""
+    h = hashlib.sha256()
+    for t in tensors:
+        if t is not None:
+            h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def template_args(mangled: str) -> list[str]:
@@ -506,6 +549,29 @@ def layer_codes(params, layer: int) -> dict:
             for k in ("self_attn", "mlp") for m in lp[k] if not m.startswith("_")}
 
 
+def checkpoint_digests(q_dir: Path) -> tuple[str, dict]:
+    """SHA-256 over a saved checkpoint's tensors (each tensor's name, dtype,
+    shape and bytes, in name order, whatever the shards), and the digest of
+    each module's ``qweight`` (its codes), by module name."""
+    from gptqmodel_tpu_torch.models.safetensors_io import read_header
+
+    entries = []
+    for f in sorted(q_dir.glob("*.safetensors")):
+        header, base = read_header(f)
+        entries += [(name, f, base, info) for name, info in header.items()]
+    whole, per_module = hashlib.sha256(), {}
+    for name, f, base, info in sorted(entries, key=lambda e: e[0]):
+        begin, end = info["data_offsets"]
+        with open(f, "rb") as fh:
+            fh.seek(base + begin)
+            data = fh.read(end - begin)
+        whole.update(f"{name}|{info['dtype']}|{info['shape']}|".encode())
+        whole.update(data)
+        if name.endswith(".qweight"):
+            per_module[name[:-len(".qweight")]] = hashlib.sha256(data).hexdigest()
+    return whole.hexdigest(), per_module
+
+
 def quantize_phase(root: Path, layers: int, card: str) -> tuple[dict, dict]:
     """The user's whole flow at Llama-3-8B's published widths, ``layers``
     deep: write a random bf16 checkpoint, ``GPTQModel.load(dir,
@@ -548,6 +614,7 @@ def quantize_phase(root: Path, layers: int, card: str) -> tuple[dict, dict]:
     model.save(q_dir)
     save_s = time.perf_counter() - t0
     q_bytes = sum(f.stat().st_size for f in q_dir.glob("*.safetensors"))
+    q_sha, module_sha = checkpoint_digests(q_dir)
     durations, per_layer = model.durations, model.layer_durations
     del model
     torch.cuda.empty_cache()
@@ -573,7 +640,8 @@ def quantize_phase(root: Path, layers: int, card: str) -> tuple[dict, dict]:
         "s_per_layer": quantize_s / layers, "durations_s": durations,
         "per_layer_s": per_layer, "peak_mem_bytes": peak, "quantize_counts": counts,
         "loss_min": min(losses), "loss_max": max(losses), "save_s": save_s,
-        "saved_bytes": q_bytes, "load_s": load_s, "generate_counts": gen_counts,
+        "saved_bytes": q_bytes, "checkpoint_sha256": q_sha, "module_codes_sha256": module_sha,
+        "load_s": load_s, "generate_counts": gen_counts,
         "tokens_first_row": tokens[0].tolist(),
     }
     return rec, {"fp_dir": fp_dir, "ids": ids, "codes0": codes0, "losses0": losses0}
@@ -2060,8 +2128,6 @@ def main() -> int:
         gptq_block_inner, gptq_block_inner_plain, gptq_whole_solve, gptq_whole_solve_plain,
     )
     from gptqmodel_tpu_torch.ops.registry import post_init_module
-    from gptqmodel_tpu_torch.quantization.gptq import hessian_inverse
-    from gptqmodel_tpu_torch.quantization.quantizer import _minmax, _params_from_range
     from gptqmodel_tpu_torch.utils.testing import (
         LLAMA3_8B_CONFIG, random_quant_linear, write_random_gptq_checkpoint,
     )
@@ -2255,15 +2321,12 @@ def main() -> int:
         end.synchronize()
         return start.elapsed_time(end), out
 
-    kw = dict(maxq=15, group_size=128, sym=True)
-    for proj, (out_f, in_f) in SOLVE_SHAPES.items():
-        g = np.random.default_rng([SEED, 200, out_f, in_f])
-        W = torch.from_numpy(g.standard_normal((out_f, in_f), dtype=np.float32) * 0.02).to(dev)
-        X = torch.from_numpy(g.standard_normal((2048, in_f), dtype=np.float32)).to(dev)
-        U, damp = hessian_inverse((2.0 / 2048) * (X.T @ X), 0.01)
-        del X
+    for proj in SOLVE_SHAPES:
+        c = solve_inputs(dev, proj)
+        W, U, kw, out_f, in_f = c["W"], c["U"], c["kw"], c["out"], c["in"]
         before = _build.LAUNCHES["gptq_whole_solve"]
-        Q, Dq, L, s_k, _ = gptq_whole_solve(W, U, **kw)
+        Q, Dq, L, s_k, z_k = gptq_whole_solve(W, U, **kw)
+        k8_sha = digest(Q, Dq, L, s_k, z_k)
         identical = torch.equal(Q, gptq_whole_solve(W, U, **kw)[0])
         plain_ms, (rQ, rDq, rL, rs, _) = event_ms(lambda: gptq_whole_solve_plain(W, U, **kw))
         require(_build.LAUNCHES["gptq_whole_solve"] == before + 2, "K8 did not launch")
@@ -2272,16 +2335,17 @@ def main() -> int:
         loss_err = abs(float(L.sum() / rL.sum()) - 1)
         dq_ok = bool(torch.allclose(Dq, rDq, rtol=K8_DQ_RTOL, atol=K8_DQ_ATOL))
         max_err = float((Dq - rDq).abs().max())
-        del Q, Dq, L, s_k, rQ, rDq, rL, rs
-        k = timed(lambda i: gptq_whole_solve(W, U, **kw), 1, budget_ms=300.0)
+        del Q, Dq, L, s_k, z_k, rQ, rDq, rL, rs
         b_ms, b_by = solve_bound(out_f, in_f)
+        k = timed(lambda i: gptq_whole_solve(W, U, **kw), 1, budget_ms=300.0, floor_ms=b_ms)
         case = {"kernel": "gptq_whole_solve", "proj": proj, "out": out_f, "in": in_f,
-                "group_size": 128, "bits": 4, "damp": damp, "code_mismatch": mismatch,
+                "group_size": 128, "bits": 4, "damp": c["damp"], "code_mismatch": mismatch,
                 "identical_runs": identical, "scale_rel_err": scale_err,
                 "loss_rel_err": loss_err, "max_abs_err": max_err, "ms": k["ms"],
                 "wall_ms": k["wall_ms"], "plain_ms": plain_ms, "plain_clock": "cuda events",
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                "library": "null: no PyTorch call computes a GPTQ solve"}
+                "library": "null: no PyTorch call computes a GPTQ solve",
+                "sha256_q_dq_l_s_z": k8_sha}
         cases.append(case)
         emit({"phase": "kernels", **case})
         require(identical, f"K8 {proj}: two runs gave different codes")
@@ -2291,27 +2355,23 @@ def main() -> int:
         require(loss_err <= K8_LOSS_RTOL, f"K8 {proj}: loss off by {loss_err}")
 
         # K9 on the first block of the same group, scales from its minmax
-        Wb, Hbb = W[:, :128].contiguous(), U[:128, :128].contiguous()
-        s_col, z_col = (t[:, None].expand(out_f, 128).contiguous()
-                        for t in _params_from_range(*_minmax(Wb, True), 15, True))
-        del W, U
-        blk = [(Wb, Hbb, s_col, z_col)]
-        blk += [tuple(t.clone() for t in blk[0])
-                for _ in range(copies_for(sum(t.nbytes for t in blk[0])) - 1)]
+        blk = c["block"]
+        del W, U, c
         before = _build.LAUNCHES["gptq_block_inner"]
         got = gptq_block_inner(*blk[0], maxq=15)
         plain_ms, ref = event_ms(lambda: gptq_block_inner_plain(*blk[0], maxq=15))
         require(_build.LAUNCHES["gptq_block_inner"] == before + 1, "K9 did not launch")
         equal = all(torch.equal(a, b) for a, b in zip(got, ref))
         max_err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
-        k = timed(lambda i: gptq_block_inner(*blk[i], maxq=15), len(blk))
         b_ms, b_by = block_bound(out_f)
+        k = timed(lambda i: gptq_block_inner(*blk[i], maxq=15), len(blk), floor_ms=b_ms)
         case = {"kernel": "gptq_block_inner", "proj": proj, "out": out_f, "in": 128,
-                "blocks_per_layer": in_f // 128, "equal": equal, "max_abs_err": max_err, "ms": k["ms"], "wall_ms": k["wall_ms"],
+                "blocks_per_layer": in_f // 128, "equal": equal, "max_abs_err": max_err,
+                "ms": k["ms"], "wall_ms": k["wall_ms"],
                 "plain_ms": plain_ms, "plain_clock": "cuda events", "bound_ms": b_ms,
                 "bound_by": b_by, "library_ms": None,
                 "library": "null: no PyTorch call computes the GPTQ column loop",
-                "input_copies": len(blk)}
+                "input_copies": len(blk), "sha256_q_dq_e_l": digest(*got)}
         cases.append(case)
         emit({"phase": "kernels", **case})
         require(equal, f"K9 {proj}: differs from its plain version by {max_err}")

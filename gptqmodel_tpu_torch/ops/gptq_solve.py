@@ -19,7 +19,9 @@ column loop in torch ops, ``solve_blocks`` the blocked solve around any column
 loop; with the plain column loop it is K8's plain version. The kernels round
 and order the column loop's arithmetic as the plain versions do (half-to-even
 rounding, IEEE division, no fused multiply-adds), so only the trailing
-product's float32 sums differ in order.
+product's float32 sums differ in order: K9 equals its plain version bit for
+bit, and K8 sums each trailing product element in ascending k with fused
+multiply-adds (the order ``csrc/gptq_solve.cu`` states as its invariant).
 """
 
 from __future__ import annotations
@@ -62,6 +64,8 @@ def _check_block_inner(Wb, Hbb, scale_cols, zero_cols):
     for t in (Wb, Hbb, scale_cols, zero_cols):
         if t.dtype != torch.float32 or not t.is_contiguous() or t.device != Wb.device:
             raise ValueError("K9 operands must be contiguous float32 on one device")
+        if t.data_ptr() % 16:
+            raise ValueError("K9 reads its operands in 16-byte words: align them to 16 bytes")
     if scale_cols.shape != Wb.shape or zero_cols.shape != Wb.shape:
         raise ValueError("K9 takes per-column scale and zero tables shaped like Wb")
 
@@ -156,6 +160,8 @@ def _check_whole_solve(W, Hinv_u, SP, ZP, group_size):
     for t in ops:
         if t.dtype != torch.float32 or not t.is_contiguous() or t.device != W.device:
             raise ValueError("K8 operands must be contiguous float32 on one device")
+        if t.data_ptr() % 16:
+            raise ValueError("K8 reads its operands in 16-byte words: align them to 16 bytes")
     if static and (SP.shape != W.shape or ZP.shape != W.shape):
         raise ValueError("K8's static tables are per column, shaped like W")
 
