@@ -13,11 +13,12 @@ Phases, each printing JSON lines on stdout:
    and K5's rings at 3, 5, 6 and 7 bits), and its instantiations and K10's
    ring by bm (``gqt_qmoe_smem_bytes``); it fails if K1's, K2's, K4's,
    K5's or K6's old 16-row tile is still built, if K4's, K5's (every
-   layout, one and two n-tiles, both zero types), K6's or K10's decode
-   instantiations are missing, if K10's old ``qmoe_pass_kernel``
-   instantiations are still built, or if the main loop of K4's 3-bit
-   stitched decode kernel (``cuobjdump -sass``) spends more than
-   ``K4_LOOP_LOP3`` LOP3 a 128-row chunk (one a code pair, and 8).
+   layout, one and two n-tiles, both zero types), K6's, K10's or K11's and
+   K12's (``MoeSlotGateUp``, ``MoeSlotDown``) decode instantiations are
+   missing, if ``qmoe_pass_kernel`` is built for anything but K13's masked
+   store (``<bits, MT, NT, 0>``) or lacks one of K13's, or if the main loop
+   of K4's 3-bit stitched decode kernel (``cuobjdump -sass``) spends more
+   than ``K4_LOOP_LOP3`` LOP3 a 128-row chunk (one a code pair, and 8).
 2. ``kernels``: each kernel against its plain PyTorch version on the card,
    at the shapes of Llama-3-8B's main paths: K1 (``qmatmul``) at the qkv, o,
    gate_up and down projections for M = 1, 8, 16 (its decode kernel) and
@@ -49,9 +50,11 @@ Phases, each printing JSON lines on stdout:
    be the decode kernel's ``MoeGateUp`` and ``MoeDown`` and the combine)
    and held to its byte bound,
    K11 and K12 (``qmoe_mlp_matmul_dyn``, ``qmoe_mlp_matmul``) at N = 8 and
-   128, equal to each other, and K13 (``qmoe_matmul``) on gate|up and down
-   at N = 8 and 128; their bound counts the distinct routed experts' words
-   and scales, once each, and the routed rows' operations. Then K6
+   128, equal to each other and each to a second run of itself, their
+   kernel names the decode kernel's (``MoeSlotGateUp``, ``MoeSlotDown``),
+   and K13 (``qmoe_matmul``) on gate|up and down at N = 8 and 128; their
+   bound counts the distinct routed experts' words and scales, once each,
+   and the routed rows' operations. Then K6
    (``qmm``, groups of 32 and 64, and 16 with random zeros) at the same four
    projections for M = 1, 8, 16 (the decode kernel's ``DequantFirst``
    instantiation, asserted from the profiler's kernel names) and 256, 4-bit,
@@ -173,12 +176,13 @@ Phases, each printing JSON lines on stdout:
 
 Then ``{"phase": "profiler"}``: how many torch.profiler sessions lost
 kernel records and were run again, how many were read from the records
-they kept (``device_ms``), and how many timed loops of K1-K7 read under
-their bound and were timed again (``timed``; a third such reading fails the
-run). K1's, K2's, K4's, K5's and K6's cases also name the kernels the
-profiler saw; at M <= 16 they must all be ``qmm_decode_kernel`` (K6: its
-``DequantFirst`` instantiation, K4 and K5: ``Units``). Then the card's
-name and power limit, the ``{"kernels": [...]}`` line and, last,
+they kept (``device_ms``), and how many timed loops of K1-K7 and K10-K12
+read under their bound and were timed again (``timed``; a third such
+reading fails the run). K1's, K2's, K4's, K5's, K6's, K11's and K12's cases
+also name the kernels the profiler saw; at M <= 16 (K11, K12: always) they
+must all be ``qmm_decode_kernel`` (K6: its ``DequantFirst`` instantiation,
+K4 and K5: ``Units``, K11 and K12: ``MoeSlotGateUp`` and ``MoeSlotDown``).
+Then the card's name and power limit, the ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Each record of the kernels line
 names its units: ``launches`` counts a whole run of the main path
 (``launches_per``: K1 and K2 the generate run, K3 the asym-act-slice
@@ -294,6 +298,8 @@ MOE_E2E_NS, MOE_SLOT_NS = (1, 8, 1024), (8, 128)
 # sums in another order; K10-K12 also round inner to bf16 in both
 K10_TOL = SLOT_MLP_TOL = 2e-3
 K13_TOL = 1e-3
+# K11's and K12's gate|up and down passes: the decode kernel's Z, in its name
+SLOT_PASSES = ("MoeSlotGateUp", "MoeSlotDown")
 # the reference's own tolerance across MoE routes (rt against ic differ by
 # the bf16 rounding of (q - zc)*s, tests/test_pallas_qmoe.py); K10 and K11 on
 # one contract, with K11's y kept in float32, differ only in where the
@@ -777,9 +783,37 @@ def k10_inputs(gu, dn, router, g, bm_of):
                                             zc_d=8.0, rt_gu=rt, rt_d=rt)}
 
 
+def slot_inputs(gu, dn, router, g, N: int, bm: int = 8) -> dict:
+    """K11's, K12's and K13's inputs at N tokens, as the model's slot path
+    makes them: the routed rows sorted by expert into slots of bm rows
+    (``plan_slots``), the slot-sorted rows ``xs`` (padding rows 0),
+    ``n_used``, the bytes K11 and K12 must move, the stacks' sets to rotate
+    through, and K11's and K12's keyword arguments."""
+    import torch
+
+    from gptqmodel_tpu_torch.ops import qmoe
+
+    E, D, F = gu.qweight.shape[0], gu.in_features, gu.out_features // 2
+    x, w, top_i = moe_routing(router, N, g)
+    M = N * w.shape[1]
+    flat = top_i.reshape(-1)
+    order = torch.sort(flat, stable=True).indices
+    S = qmoe.slot_bound(M, E, bm)
+    ids, counts, pos = qmoe.plan_slots(flat[order], E, bm, S)
+    xs = torch.zeros((S * bm, D), dtype=torch.bfloat16, device=x.device)
+    xs[pos.long()] = x[order // w.shape[1]]
+    n_bytes = moe_bytes(top_i, (gu, dn), M * D, M * D)
+    return {"N": N, "M": M, "bm": bm, "S": S, "top_i": top_i, "xs": xs, "ids": ids,
+            "counts": counts, "n_used": (counts > 0).sum().to(torch.int32).reshape(1),
+            "n_bytes": n_bytes, "sets": moe_rotated((gu, dn), n_bytes),
+            "kw": dict(bits=4, G_gu=gu.G, G_d=dn.G, F=F, bm=bm, zc_gu=8.0, zc_d=8.0,
+                       out_dtype=torch.bfloat16)}
+
+
 def moe_kernel_cases(dev) -> list:
     """K10 at N = 1, 8 and 1024 tokens (two runs each, for equal bits), K11
-    and K12 at N = 8 and 128 (equal to each other), K13 gate|up and down at
+    and K12 at N = 8 and 128 (equal to each other and to a second run, on
+    the decode ring by the profiler's names), K13 gate|up and down at
     N = 8 and 128, at Qwen3-30B-A3B's widths, each against its plain
     version, the stacks rotated through copies past the L2."""
     import torch
@@ -794,8 +828,8 @@ def moe_kernel_cases(dev) -> list:
     def case(kernel, N, M, y, ref, kern, plain, n_bytes, ops, tol, **extra):
         rel, mx = errors(y, ref)
         b_ms, b_by = bound(n_bytes, ops)
-        k10 = kernel == "qmoe_e2e"
-        k = timed(kern, extra["copies"], floor_ms=b_ms if k10 else 0.0)
+        k10, slot = kernel == "qmoe_e2e", kernel in ("qmoe_mlp_dyn", "qmoe_mlp")
+        k = timed(kern, extra["copies"], floor_ms=b_ms if k10 or slot else 0.0)
         p = timed(plain, extra["copies"], budget_ms=100.0)
         c = {"kernel": kernel, "N": N, "M": M, "D": D, "F": F, "E": E, "rel_err": rel,
              "max_abs_err": mx, "ms": k["ms"], "wall_ms": k["wall_ms"], "plain_ms": p["ms"],
@@ -805,6 +839,7 @@ def moe_kernel_cases(dev) -> list:
              **extra}
         if k10:  # by pass, from the profiler's kernel names
             c["ms_by_pass"] = by_k10_pass(k["rows"])
+        if k10 or slot:
             c["kernel_names"] = k["kernels"]
         cases.append(c)
         emit({"phase": "kernels", **c})
@@ -832,19 +867,10 @@ def moe_kernel_cases(dev) -> list:
         del c, sets
 
     for N in MOE_SLOT_NS:
-        x, w, top_i = moe_routing(router, N, g)
-        M, bm = N * w.shape[1], 8
-        flat = top_i.reshape(-1)
-        order = torch.sort(flat, stable=True).indices
-        S = qmoe.slot_bound(M, E, bm)
-        ids, counts, pos = qmoe.plan_slots(flat[order], E, bm, S)
-        xs = torch.zeros((S * bm, D), dtype=torch.bfloat16, device=dev)
-        xs[pos.long()] = x[order // w.shape[1]]
-        n_used = (counts > 0).sum().to(torch.int32).reshape(1)
-        n_bytes = moe_bytes(top_i, (gu, dn), M * D, M * D)
-        sets = moe_rotated((gu, dn), n_bytes)
-        kw = dict(bits=4, G_gu=gu.G, G_d=dn.G, F=F, bm=bm, zc_gu=8.0, zc_d=8.0,
-                  out_dtype=torch.bfloat16)
+        c = slot_inputs(gu, dn, router, g, N)
+        M, bm, S, top_i, xs, ids, counts, n_used, n_bytes, sets, kw = (
+            c[k] for k in ("M", "bm", "S", "top_i", "xs", "ids", "counts", "n_used", "n_bytes",
+                           "sets", "kw"))
         dyn = lambda i: qmoe.qmoe_mlp_matmul_dyn(xs, ids, counts, n_used, *sets[i], **kw)
         grid = lambda i: qmoe.qmoe_mlp_matmul(xs, ids, counts, *sets[i], **kw)
         plain = lambda i: qmoe.qmoe_mlp_matmul_plain(xs, ids, counts, *sets[i], **kw)
@@ -853,8 +879,14 @@ def moe_kernel_cases(dev) -> list:
         equal = torch.equal(y_dyn, y_grid)
         ops = 2.0 * M * 3 * D * F
         for kernel, fn, y in (("qmoe_mlp_dyn", dyn, y_dyn), ("qmoe_mlp", grid, y_grid)):
+            identical = torch.equal(y, fn(0))
             case(kernel, N, M, y, ref, fn, plain, n_bytes, ops, SLOT_MLP_TOL, bm=bm, slots=S,
-                 equal_k11_k12=equal, copies=len(sets))
+                 equal_k11_k12=equal, identical_runs=identical, copies=len(sets))
+            require(identical, f"{kernel} N={N}: two runs gave different bits")
+            names = cases[-1]["kernel_names"]
+            require(on_decode_kernel(names) and all(k10_pass(n) == "other" for n in names)
+                    and all(any(z in n for n in names) for z in SLOT_PASSES),
+                    f"{kernel} N={N} ran {names}")
         require(equal, f"K11 and K12 differ at N={N}")
 
         k13 = dict(bits=4, bm=bm, zero_const=8.0, out_dtype=torch.bfloat16)
@@ -870,7 +902,7 @@ def moe_kernel_cases(dev) -> list:
             case("qmoe_matmul", N, M, y, ref, kern, plain,
                  moe_bytes(top_i, (st,), M * K, M * Nout), 2.0 * M * K * Nout, K13_TOL,
                  proj=proj, bm=bm, slots=S, copies=len(sets))
-        del sets, xs, inner, gu_out
+        del c, sets, xs, inner, gu_out
     del gu, dn
     torch.cuda.empty_cache()
     return cases
@@ -1490,16 +1522,17 @@ PROFILER_SHORT = {"sessions": 0, "estimated": 0, "under_bound": 0}
 def device_ms(run, per: int, activities=None, uniform: bool = True) -> tuple[float, list]:
     """Kernel time on the device per ``per`` calls made by ``run()``
     under torch.profiler (CUDA activity unless ``activities`` says more), in
-    all and by kernel name. CUPTI now and then loses records: none in a
-    session (once in sixteen runs of this script on an H100), one K8 record
-    in most sessions on some machines, whatever the pause around the
-    launches, or most of a 2 ms loop's (K3 read 0.0032 ms at o, M = 8, under
-    its byte bound). A session with fewer records than calls is run again,
-    three sessions at most. With ``uniform`` every call launches the same
-    kernels, so each kernel's count must also be a multiple of ``per``; a
-    machine that loses records loses them in most sessions, so the second
-    short session that holds records (or the third session) is read as each
-    kernel's mean time over the records kept times its launches per call,
+    all and by kernel name. CUPTI now and then loses records: all of a
+    session's (one to four sessions in a run of this script on an H100, once
+    three in a row), one K8 record in most sessions on some machines,
+    whatever the pause around the launches, or most of a 2 ms loop's (K3
+    read 0.0032 ms at o, M = 8, under its byte bound). A session with fewer
+    records than calls is run again: at most three that held some and six
+    that held none. With ``uniform`` every call launches the same kernels,
+    so each kernel's count must also be a multiple of ``per``; a machine
+    that loses records loses them in most sessions, so the second short
+    session that holds records (or one after two that held none) is read as
+    each kernel's mean time over the records kept times its launches per call,
     ``ceil(count / per)``, which is the sum over ``per`` when none was lost.
     A decode step is not uniform (a few of its kernels launch on some steps
     only), so its sessions are held to the count of calls alone and read as
@@ -1508,8 +1541,8 @@ def device_ms(run, per: int, activities=None, uniform: bool = True) -> tuple[flo
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    held_some = False  # an earlier session of this call held records, too few
-    for session in range(3):
+    held = empty = 0  # earlier sessions of this call with too few records, with none
+    while held < 3 and empty < 6:
         with profile(activities=list(activities or (ProfilerActivity.CUDA,))) as prof:
             run()
             torch.cuda.synchronize()
@@ -1517,17 +1550,18 @@ def device_ms(run, per: int, activities=None, uniform: bool = True) -> tuple[flo
                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
         n = sum(e.count for e in kernels)
         short = n < per or (uniform and any(e.count % per for e in kernels))
-        if kernels and (not short or (uniform and (held_some or session == 2))):
+        if kernels and (not short or (uniform and (held or empty >= 2))):
             PROFILER_SHORT["estimated"] += short
             launches = (lambda c: -(-c // per)) if uniform else (lambda c: c / per)
             rows = sorted(((e.key, e.self_device_time_total / 1e3 / e.count
                             * launches(e.count)) for e in kernels), key=lambda kv: -kv[1])
             return sum(ms for _, ms in rows), rows
         PROFILER_SHORT["sessions"] += 1
-        held_some = held_some or bool(kernels)
+        held, empty = held + bool(kernels), empty + (not kernels)
         print(f"chip_smoke: profiler session held {n} kernel records for {per} calls "
               f"({', '.join(str(e.count) for e in kernels)} by kernel)", file=sys.stderr)
-    raise CheckFailed("torch.profiler recorded fewer kernels than calls in three sessions")
+    raise CheckFailed(f"torch.profiler recorded fewer kernels than calls in {held} sessions "
+                      f"and none in {empty}")
 
 
 def timed(fn, n_copies: int, budget_ms: float = 150.0, floor_ms: float = 0.0) -> dict:
@@ -1574,8 +1608,9 @@ def on_decode_kernel(names: list) -> bool:
 def k10_pass(name: str) -> str:
     """The part of K10 a kernel name belongs to: its gate|up or down pass on
     the decode ring (``qmm_decode_kernel`` with ``MoeGateUp`` or
-    ``MoeDown``), its combine, ``qmoe_pass_kernel`` (K11-K13's kernel, which
-    K10 no longer runs), or none of them."""
+    ``MoeDown``), its combine, ``qmoe_pass_kernel`` (K13's kernel, which
+    K10 no longer runs), or none of them (K11's and K12's ring passes,
+    ``SLOT_PASSES``, among them)."""
     if "qmm_decode_kernel<" in name and "MoeGateUp" in name:
         return "gate_up"
     if "qmm_decode_kernel<" in name and "MoeDown" in name:
@@ -2159,18 +2194,24 @@ def main() -> int:
             for z in ("UniformZero", f"GroupZeros,{bits}"):
                 require(f"qmm_decode_kernel<{bits},{nt},DequantFirst,{z},0>" in decode_kernels,
                         f"no {bits}-bit K6 decode kernel on {z} for {8 * nt} rows in the build")
-    # K10's passes on the ring at every bm (n-tiles 1-4), rt and ic;
-    # qmoe_pass_kernel keeps only K11-K13's instantiations (<bits, MT, NT,
-    # epilogue 0 or 1>), not K10's older ones
+    # K10's passes on the ring at every bm (n-tiles 1-4), rt and ic, and
+    # K11's and K12's (ic); qmoe_pass_kernel keeps only K13's masked store
+    # (<bits, MT, NT, epilogue 0>) at each of its tiles
     for bits in KERNEL_BITS:
         for nt in (1, 2, 3, 4):
             for z in ("MoeGateUp", "MoeDown"):
                 for zeros in ("UniformZero", "DequantFirst,UniformZero"):
                     require(f"qmm_decode_kernel<{bits},{nt},{z},{zeros},0>" in decode_kernels,
                             f"no {bits}-bit K10 {z} on {zeros} for {8 * nt} rows in the build")
-    old_k10 = [k for k in kernels_ptxas if k.startswith("qmoe_pass_kernel<")
-               and not re.fullmatch(r"qmoe_pass_kernel<\d,\d,\d,[01]>", k)]
-    require(not old_k10, f"K10's qmoe_pass_kernel instantiations are still built: {old_k10}")
+            for z in SLOT_PASSES:
+                require(f"qmm_decode_kernel<{bits},{nt},{z},DequantFirst,UniformZero,0>"
+                        in decode_kernels, f"no {bits}-bit K11/K12 {z} for {8 * nt} rows")
+        for mt, nt in ((1, 1), (2, 4), (2, 1)):
+            require(f"qmoe_pass_kernel<{bits},{mt},{nt},0>" in kernels_ptxas,
+                    f"no {bits}-bit K13 qmoe_pass_kernel<{mt},{nt}> in the build")
+    not_k13 = [k for k in kernels_ptxas if k.startswith("qmoe_pass_kernel<")
+               and not re.fullmatch(r"qmoe_pass_kernel<\d,\d,\d,0>", k)]
+    require(not not_k13, f"qmoe_pass_kernel is built for other than K13: {not_k13}")
     # K4 and K5 at M <= 16: Units over either zeros, at every layout
     for bits, planar in ((3, False), *PLANE_LAYOUTS):
         for nt in (1, 2):
@@ -2620,12 +2661,14 @@ def main() -> int:
          "ms_per": f"decode step at B = {B} ({L_moe} layers)",
          **moe_entry("qmoe_e2e", B, L_moe)},
         {"name": "qmoe_mlp_matmul_dyn (K11)", "route": "cuda",
-         "source": "gptqmodel_tpu_torch/csrc/qmoe.cu",
+         "source": ("gptqmodel_tpu_torch/csrc/qmm_decode.cuh (gate|up and down), "
+                    "gptqmodel_tpu_torch/csrc/qmoe.cu (launch)"),
          "replaces": "gptqmodel_tpu/ops/pallas_qmoe.py:534",
          "launches": route_counts["qmoe_mlp_dyn"], "launches_per": "moe-routes run",
          "ms_per": per_route_layer, **moe_entry("qmoe_mlp_dyn", B, 1)},
         {"name": "qmoe_mlp_matmul (K12)", "route": "cuda",
-         "source": "gptqmodel_tpu_torch/csrc/qmoe.cu",
+         "source": ("gptqmodel_tpu_torch/csrc/qmm_decode.cuh (gate|up and down), "
+                    "gptqmodel_tpu_torch/csrc/qmoe.cu (launch)"),
          "replaces": "gptqmodel_tpu/ops/pallas_qmoe.py:362",
          "launches": route_counts["qmoe_mlp"], "launches_per": "moe-routes run",
          "ms_per": per_route_layer, **moe_entry("qmoe_mlp", B, 1)},

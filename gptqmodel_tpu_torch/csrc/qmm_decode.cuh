@@ -1,6 +1,6 @@
 // The decode kernel of K1, K3, K4, K5, K6 and K7, and of both passes of K2
 // (M <= 16 rows): y[M, N] = x[M, K] @ dequant(qweight); and of both passes
-// of K10 (qmoe.cu), a slot of up to 32 routed rows a block.
+// of K10, K11 and K12 (qmoe.cu), a slot of up to 32 routed rows a block.
 //
 // At decode the packed weights are the whole cost: each is read once and
 // used for at most 16 rows, so the card's 3.35 TB/s bounds the kernel and
@@ -97,6 +97,17 @@
 // and the cluster splits K in whole groups; its ic weight
 // bf16(bf16(c - zc) * s) is K10's bf16((q - zc) * s), as c - zc is exact in
 // bf16 and the product exact in f32 before its one rounding.
+//
+// K11 and K12 (qmoe.cu, gqt_qmoe_mlp) run the same two passes on the same
+// ring with Z = MoeSlotGateUp<DequantFirst<UniformZero>> and
+// MoeSlotDown<...> (the ic contract) over slot-sorted rows: both read slot
+// s's rows in place (row m is x[s*bm + m], as K10's down reads inner), a
+// slot at or past *n_used (K11) or, with n_used NULL, of count 0 (K12)
+// leaves with its whole cluster, and down writes y itself to out [S*bm, D]
+// in f32 or bf16, rows at or past counts[s] 0. Rank 0 of a skipped slot's
+// down cluster first writes its tile's rows 0, so that no row of the output
+// is left unwritten. Every difference from K10's passes is a compile-time
+// branch on moe_pass<Z>::slot, so K10's instantiations are as before.
 //
 // K4 and K5 (qmatmul_planes.cu) take Z = Units<PLANAR, UniformZero> or
 // Units<PLANAR, PlaneZeros<BITS, PLANAR>>: 3, 5, 6 or 7-bit codes in 32-row
@@ -322,21 +333,53 @@ struct MoeDown : Z {
   SlotPlan plan;
 };
 
-// Whether Z is a K10 pass, which one, and its zeros.
+// K11's and K12's passes (above): the plan's ids, n_used (NULL for K12) and
+// Gp (tok and w unused), and the slots' row counts; down's output type.
+struct SlotRows {
+  const int* counts;  // [S] rows of each slot
+  int out_f32;        // down: out float32 (1) or bf16 (0)
+};
+template <class Z>
+struct MoeSlotGateUp : Z {
+  SlotPlan plan;
+  SlotRows rows;
+};
+template <class Z>
+struct MoeSlotDown : Z {
+  SlotPlan plan;
+  SlotRows rows;
+};
+
+// Whether Z is a MoE pass, which one, whether K11's and K12's, and its zeros.
 template <class Z>
 struct moe_pass : std::false_type {
   using zeros = Z;
   static constexpr bool gate_up = false;
+  static constexpr bool slot = false;
 };
 template <class Z>
 struct moe_pass<MoeGateUp<Z>> : std::true_type {
   using zeros = Z;
   static constexpr bool gate_up = true;
+  static constexpr bool slot = false;
 };
 template <class Z>
 struct moe_pass<MoeDown<Z>> : std::true_type {
   using zeros = Z;
   static constexpr bool gate_up = false;
+  static constexpr bool slot = false;
+};
+template <class Z>
+struct moe_pass<MoeSlotGateUp<Z>> : std::true_type {
+  using zeros = Z;
+  static constexpr bool gate_up = true;
+  static constexpr bool slot = true;
+};
+template <class Z>
+struct moe_pass<MoeSlotDown<Z>> : std::true_type {
+  using zeros = Z;
+  static constexpr bool gate_up = false;
+  static constexpr bool slot = true;
 };
 
 // K4 and K5 (qmatmul_planes.cu): the codes in 32-row units of BITS words,
@@ -499,6 +542,21 @@ __device__ __forceinline__ void cp_async16_or_zero(uint32_t dst, const void* src
                : "memory");
 }
 
+// K11's and K12's down pass at a skipped slot: rows blockIdx.y*M .. + M - 1
+// of out [S*M, N] (f32 or bf16) at the tile's columns c0 .. c0 + 63 written
+// 0 by the block's threads, in 16-byte pieces (4 f32 or 8 bf16 columns;
+// N % 8 == 0, so a piece is whole or absent).
+__device__ __forceinline__ void zero_slot_tile(void* out, int f32, int M, int N, int c0) {
+  const int per = f32 ? 4 : 8, pieces = kDecodeCols / per, size = f32 ? 4 : 2;
+  for (int i = threadIdx.x; i < M * pieces; i += blockDim.x) {
+    const int m = i / pieces, c = c0 + (i % pieces) * per;
+    if (c < N) {
+      char* p = static_cast<char*>(out) + (((size_t)blockIdx.y * M + m) * N + c) * size;
+      *reinterpret_cast<uint4*>(p) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+}
+
 // Where tile column c lies past the tile's first column: c itself, or for
 // K2's gate/up tile (GATE_UP, N = 2F) the up columns' offset past F.
 template <bool GATE_UP>
@@ -508,9 +566,11 @@ __device__ __forceinline__ int tile_offset(int c, int N) {
 
 // Z is GroupZeros<BITS> (K3), UniformZero (K1; K7 with FOLD), Units<...>
 // (K4, K5 at 3, 5, 6 and 7 bits), GateUpPairs
-// (K2's gate/up pass, out [M, N/2]), DequantFirst<either zeros> (K6), or
+// (K2's gate/up pass, out [M, N/2]), DequantFirst<either zeros> (K6),
 // MoeGateUp / MoeDown of UniformZero or DequantFirst<UniformZero> (K10's
-// passes: M = bm rows of the slot blockIdx.y, scales bf16); NT n-tiles of 8
+// passes: M = bm rows of the slot blockIdx.y, scales bf16), or MoeSlotGateUp
+// / MoeSlotDown of DequantFirst<UniformZero> (K11's and K12's, out of down
+// f32 or bf16 by SlotRows::out_f32); NT n-tiles of 8
 // tokens (M <= 8 * NT). Grid: (column tiles) x split blocks, clusters of
 // split along x (K10: by S slots along y); dynamic shared memory
 // DecodeShape<BITS>::smem_bytes(M) (K6: k6_smem_bytes(M, g)).
@@ -528,6 +588,7 @@ __global__ void __launch_bounds__(kDecodeThreads, units<Z>::value && NT == 1 ? 5
   using SC = decode_scale_t<Z>;
   using SC2 = scale_pair_t<SC>;
   constexpr bool kMoe = moe_pass<Z>::value;
+  constexpr bool kSlot = moe_pass<Z>::slot;  // K11's and K12's passes: slot rows in place
   using ZS = typename moe_pass<Z>::zeros;  // the zeros (under K10's slot plan)
   constexpr bool kDequantFirst = dequant_first<ZS>::value;
   // K6's stage holds every group of its chunk; K10's groups are whole chunks
@@ -552,7 +613,19 @@ __global__ void __launch_bounds__(kDecodeThreads, units<Z>::value && NT == 1 ? 5
   // K10: the slot's expert; a slot past the used ones leaves with its whole
   // cluster, which shares the slot
   int expert = 0;
-  if constexpr (kMoe) {
+  if constexpr (kSlot) {  // K11: a slot past *n_used; K12 (n_used NULL): of count 0
+    expert = zero.plan.ids[blockIdx.y];
+    const int* n_used = zero.plan.n_used;
+    if (n_used ? (int)blockIdx.y >= *n_used : zero.rows.counts[blockIdx.y] == 0) {
+      if constexpr (!kGateUp) {  // down: rank 0 writes the tile's rows 0
+        const cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+        if (cl.block_rank() == 0)
+          zero_slot_tile(out, zero.rows.out_f32, M, N,
+                         (int)(blockIdx.x / cl.num_blocks()) * kDecodeCols);
+      }
+      return;
+    }
+  } else if constexpr (kMoe) {
     expert = zero.plan.ids[blockIdx.y];  // both loads in flight at once
     if ((int)blockIdx.y >= *zero.plan.n_used) return;
   }
@@ -590,7 +663,7 @@ __global__ void __launch_bounds__(kDecodeThreads, units<Z>::value && NT == 1 ? 5
     if constexpr (kMoe) {  // K10: the expert's words and scales (down: the slot's rows of inner)
       qw += (size_t)expert * (K / PF) * N;
       sc += (size_t)expert * zero.plan.Gp * N;
-      if constexpr (!kGateUp) x += (size_t)blockIdx.y * M * K;
+      if constexpr (!kGateUp || kSlot) x += (size_t)blockIdx.y * M * K;  // K11, K12: in place
     }
     // the chunk's group and its chunks still to copy (not K6's: whole groups a chunk)
     int grp = k_begin / g, left = g / kChunk;
@@ -644,7 +717,7 @@ __global__ void __launch_bounds__(kDecodeThreads, units<Z>::value && NT == 1 ? 5
       }
       for (int i = pl; i < M * (kChunk / 8); i += PT) {  // 8 values of an x row
         const int m = i / (kChunk / 8), q = i % (kChunk / 8);
-        if constexpr (kMoe && kGateUp) {  // K10's gate|up: the slot row's token, -1 zeros
+        if constexpr (kMoe && kGateUp && !kSlot) {  // K10's gate|up: the slot row's token, -1 zeros
           const int r = zero.plan.tok[(size_t)blockIdx.y * M + m];
           cp_async16_or_zero(st + x_at + 4 * (m * D::XROW + 4 * q),
                              x + (size_t)(r < 0 ? 0 : r) * K + k0 + 8 * q, r < 0);
@@ -927,6 +1000,30 @@ __global__ void __launch_bounds__(kDecodeThreads, units<Z>::value && NT == 1 ? 5
   } else if (rank != 0 || kp != 0 || c0 + cw >= N) {
     return;
   }
+  if constexpr (kSlot && !kGateUp) {  // K11's and K12's down: y, rows at or past the count 0
+    const int keep = zero.rows.counts[blockIdx.y];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = 8 * nt + 2 * t + h;
+        if (m < M) {
+          const bool k = m < keep;
+          const float v[4] = {k ? acc[0][nt][h] : 0.f, k ? acc[0][nt][2 + h] : 0.f,
+                              k ? acc[1][nt][h] : 0.f, k ? acc[1][nt][2 + h] : 0.f};
+          const size_t o = ((size_t)blockIdx.y * M + m) * N + c0 + cw;
+          if (zero.rows.out_f32) {
+            *reinterpret_cast<float4*>(reinterpret_cast<float*>(out) + o) =
+                make_float4(v[0], v[1], v[2], v[3]);
+          } else {
+            const __nv_bfloat162 b[2] = {__floats2bfloat162_rn(v[0], v[1]),
+                                         __floats2bfloat162_rn(v[2], v[3])};
+            *reinterpret_cast<uint2*>(out + o) = *reinterpret_cast<const uint2*>(b);
+          }
+        }
+      }
+    return;
+  }
   if constexpr (kMoe && !kGateUp) {  // K10's down: ybuf = y * w[row] in f32, per slot row
     float* y = reinterpret_cast<float*>(out);
 #pragma unroll
@@ -1034,7 +1131,8 @@ int dispatch_decode_or_tile(KernelOf kernel_of, const void* x, int M, int K, con
   return (int)cudaGetLastError();
 }
 
-// Launches one of K10's passes (Z = MoeGateUp<...> or MoeDown<...>) over the
+// Launches one of K10's passes (Z = MoeGateUp<...> or MoeDown<...>), or of
+// K11's and K12's (MoeSlotGateUp<...>, MoeSlotDown<...>), over the
 // S slots of the plan, bm = 8 * NT rows a slot: ceil(N / 64) column tiles
 // (gate|up: F / 32 tiles of 32 pairs) x split blocks along x, the slots
 // along y. Returns 0, -1 for bm outside 8, 16, 24, 32, S outside
@@ -1043,7 +1141,7 @@ int dispatch_decode_or_tile(KernelOf kernel_of, const void* x, int M, int K, con
 template <int BITS, class Z>
 int launch_moe_pass(const void* x, int bm, int K, const void* qw, const void* sc, int N, int g,
                     Z zero, int split, int S, void* out, cudaStream_t stream) {
-  static_assert(moe_pass<Z>::value, "K10's passes take a slot plan");
+  static_assert(moe_pass<Z>::value, "the MoE passes take a slot plan");
   using D = DecodeShape<BITS>;
   if (bm < 8 || bm > kDecodeMoeMaxM || bm % 8 || S < 1 || S > 65535 || split < 1 ||
       split > kDecodeMaxSplit || split > K / g)

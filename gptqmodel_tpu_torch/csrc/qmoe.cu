@@ -20,10 +20,10 @@
 // mapped onto the packed fields and x gathered with the same map, so no
 // permute is needed and the sums are the same products.
 //
-// K10 runs both passes on the decode ring of qmm_decode.cuh (K1's
-// producers, ring, consumers and rank-order cluster reduction), one block
-// per (slot, 64-column tile, cluster rank), bm = 8 .. 32 rows a slot as
-// bm / 8 n-tiles of 8 tokens, the weights the mma's A operand:
+// K10, K11 and K12 run their passes on the decode ring of qmm_decode.cuh
+// (K1's producers, ring, consumers and rank-order cluster reduction), one
+// block per (slot, 64-column tile, cluster rank), bm = 8 .. 32 rows a slot
+// as bm / 8 n-tiles of 8 tokens, the weights the mma's A operand. K10:
 //   gate|up (MoeGateUp) -> inner [S*bm, F] = bf16(silu(g)*u): 32 gate columns
 //              and their 32 up columns a tile, as K2's GateUpPairs; the
 //              producers gather x rows through tok, -1 a zero row;
@@ -32,38 +32,46 @@
 //   combine           -> out[n] = sum of ybuf over token n's slot rows, from
 //              0 in ascending slot (= expert) order in f32, rounded once: the
 //              TPU kernel's accumulation order, with no float atomics.
+// K11 and K12 (gqt_qmoe_mlp), over slot-sorted rows x [S*bm, D]:
+//   gate|up (MoeSlotGateUp) -> inner as K10's, the slot's rows of x read in
+//              place (row m of slot s is x[s*bm + m]);
+//   down (MoeSlotDown) -> out [S*bm, D] = y in f32 or bf16, rows at or past
+//              the slot's count 0; no combine.
 // A block reads its slot's expert and *n_used on the device and exits at
 // once past the used slots, with its whole cluster (one slot), so the
-// routing plan never visits the host. rt is K1's zero type (UniformZero),
-// ic is K6's (DequantFirst<UniformZero>): bf16(bf16(c - zc) * s) equals
-// bf16((q - zc) * s) for bf16 scales, as c - zc is exact in bf16 and the
-// product exact in f32 before its one rounding. K10's groups are multiples
-// of 128, so a stage holds one bf16 scale row. The launch plan (cluster
-// split over K, grid) depends on the routed rows, K, N and the SM count,
-// never on bm, so a row's sums do not depend on bm either.
+// routing plan never visits the host (K12, n_used NULL: a slot of count 0).
+// K11's and K12's down pass first writes a skipped slot's rows 0 (rank 0 of
+// its cluster), so the output needs no memset. rt is K1's zero type
+// (UniformZero), ic is K6's (DequantFirst<UniformZero>): bf16(bf16(c - zc)
+// * s) equals bf16((q - zc) * s) for bf16 scales, as c - zc is exact in
+// bf16 and the product exact in f32 before its one rounding. K11 and K12
+// compute the ic contract. The groups are multiples of 128, so a stage
+// holds one bf16 scale row. The launch plans (cluster split over K, grid)
+// come from shapes only: K10's (e2e_plan) from the routed rows, K, N and the
+// SM count, never bm, so a row's sums do not depend on bm either; K11's and
+// K12's (slot_mlp_plan) from the slot bound S, K, N and the SM count, the
+// same for both, so that K11 and K12, which differ only in which slots they
+// skip, give equal bits. Two runs of any of them do too.
 //
-// K11-K13 run qmoe_pass_kernel: a block of 4 warps computes one slot's bm
-// rows (one or two 16-row mma tiles) against 8*NT columns of the slot's
-// expert, the warps splitting K by whole groups and adding in warp order
+// K13 runs qmoe_pass_kernel: a block of 4 warps computes one slot's bm rows
+// (one or two 16-row mma tiles) against 8*NT columns of the slot's expert,
+// the warps splitting K by whole groups and adding in warp order
 // (block_reduce, no atomics), the B operand built in registers from the
-// packed words as in K1 (qmm_common.cuh), in the ic contract.
-//   gate|up  -> inner [S*bm, F] = bf16(silu(g)*u) (slot-sorted rows)
-//   down / K13 -> out [S*bm, N], rows at or past the count 0 (bf16 or f32)
-// A slot that is not used writes 0 (K12, K13: count == 0; K11: s >=
-// *n_used, read on the device). K11 and K12 run the same passes and differ
-// only in which slots they skip, so their results are equal bit for bit;
-// two runs of any of them are too.
+// packed words as in K1 (qmm_common.cuh), in the ic contract; out [S*bm, N],
+// rows at or past the count 0 (bf16 or f32), a slot of count 0 all 0.
 //
 // What bounds them on an H100 (3.35 TB/s, 989 TFLOP/s bf16): at decode the
 // routed experts' packed weights, read once each (K10 at B = 8, top-8 of
 // 128: about 51 distinct experts, 120 MB a layer, 0.037 ms); at prefill the
-// routed rows' operations. K11-K13 stay the simple design: every slot block
+// routed rows' operations. K13 stays the simple design: every slot block
 // reads its expert's words (slots of one expert are neighbours in launch
 // order and meet them in L2), decode tiles are 16 rows by 8 or 16 columns,
 // no wgmma, TMA or persistent scheduling. Measured by chip_smoke.py on an
 // NVIDIA H100 80GB HBM3 at 700 W (PERF.md): K10 0.083 ms a layer at B = 8
 // against its 0.037 ms byte bound, 0.94 ms at the prefill of 1024 tokens
-// against 0.095 ms; K11-K13 about 0.15 ms at N = 8 against 0.034 ms.
+// against 0.095 ms; K11 and K12 0.067 ms at N = 8 against 0.034 ms and
+// 0.23 ms at N = 128 against 0.095 ms; K13 about 0.14 ms at N = 8 against
+// 0.034 ms.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -75,7 +83,9 @@
 
 namespace gqt {
 
-enum Epilogue { kStoreMasked = 0, kActInner = 1 };
+// qmoe_pass_kernel's epilogue: K13's masked store, the only one (the
+// template argument keeps K13's kernel names, <bits, MT, NT, 0>)
+enum Epilogue { kStoreMasked = 0 };
 constexpr int kMaxTopk = 16;
 
 struct PassArgs {
@@ -83,15 +93,17 @@ struct PassArgs {
   int ldx;
   const int* ids;          // [S] expert of each slot
   const int* counts;       // [S] rows of each slot, or NULL (all bm)
-  const int* n_used;       // [1] used slots, or NULL (skip by count)
+  // [1] used slots, or NULL (skip by count). K13 passes NULL; without the
+  // field and its test ptxas gave K13 other code, 5-7% slower on an H100
+  // (PERF.md), so both stay
+  const int* n_used;
   int bm, K, N;            // N: the weight's columns
   const uint32_t* qw;      // [E, K/PF, N]
   const __nv_bfloat16* sc; // [E, Gp, N]
   int Gp, g;
   float zc;
-  void* out;               // kActInner: inner [S*bm, F]; else [S*bm, N]
-  int out_f32;             // kStoreMasked: float32 (1) or bf16 (0)
-  int F;                   // kActInner: gate columns [0, F), up [F, 2F)
+  void* out;               // [S*bm, N]
+  int out_f32;             // float32 (1) or bf16 (0)
 };
 
 // bf16 pair of (q - zc) * s, the product exact in f32 and rounded once.
@@ -193,19 +205,13 @@ __global__ void __launch_bounds__(kThreads) qmoe_pass_kernel(const PassArgs a) {
   const int s = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int t = lane & 3, gid = lane >> 2;
+  static_assert(EPI == kStoreMasked, "K13's masked store");
   const int cnt = a.counts ? a.counts[s] : a.bm;
   const bool used = a.n_used ? s < *a.n_used : cnt > 0;
-  if (!used && EPI != kStoreMasked) return;  // nothing reads those rows
 
   int cols[NT];
-  if constexpr (EPI == kActInner) {
-    static_assert(NT == 2, "the act pass pairs 8 gate with 8 up columns");
-    cols[0] = blockIdx.x * 8;
-    cols[1] = a.F + blockIdx.x * 8;
-  } else {
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) cols[nt] = (blockIdx.x * NT + nt) * 8;
-  }
+  for (int nt = 0; nt < NT; ++nt) cols[nt] = (blockIdx.x * NT + nt) * 8;
   float acc[MT][NT][4];
   if (used) {
     const int e = a.ids[s];
@@ -223,7 +229,7 @@ __global__ void __launch_bounds__(kThreads) qmoe_pass_kernel(const PassArgs a) {
         a.x, a.ldx, src, a.qw + (size_t)e * (a.K / PF) * a.N,
         a.sc + (size_t)e * a.Gp * a.N, a.N, cols, a.g, k_begin, k_end, a.zc, acc);
     block_reduce<MT, NT>(red, acc);
-  } else {  // a skipped slot of K11, K12 or K13 writes its rows 0
+  } else {  // a slot of count 0 writes its rows 0
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -240,21 +246,11 @@ __global__ void __launch_bounds__(kThreads) qmoe_pass_kernel(const PassArgs a) {
       const int i = 16 * mt + 8 * h + gid;
       if (i >= a.bm) continue;
       const size_t r = (size_t)s * a.bm + i;
-      if constexpr (EPI == kActInner) {
-        float v[2];
+      const bool k = i < keep;
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const float gt = acc[mt][0][2 * h + j];
-          v[j] = gt / (1.f + expf(-gt)) * acc[mt][1][2 * h + j];  // silu(g) * u, f32
-        }
-        store_bf16x2(static_cast<__nv_bfloat16*>(a.out) + r * a.F + cols[0] + 2 * t, v[0], v[1]);
-      } else {
-        const bool k = i < keep;
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-          store2(a.out, r * a.N + cols[nt] + 2 * t, a.out_f32, k ? acc[mt][nt][2 * h] : 0.f,
-                 k ? acc[mt][nt][2 * h + 1] : 0.f);
-      }
+      for (int nt = 0; nt < NT; ++nt)
+        store2(a.out, r * a.N + cols[nt] + 2 * t, a.out_f32, k ? acc[mt][nt][2 * h] : 0.f,
+               k ? acc[mt][nt][2 * h + 1] : 0.f);
     }
 }
 
@@ -293,28 +289,27 @@ void launch(const PassArgs& a, int S, int col_blocks, cudaStream_t st) {
 }
 
 // Tiles by bm: one 16-row tile (bm <= 16) with 8 columns, or two with 32
-// where N allows; the act pass always pairs 8 gate and 8 up columns.
-template <int BITS, int EPI>
+// where N allows.
+template <int BITS>
 void pass(const PassArgs& a, int S, cudaStream_t st) {
-  if constexpr (EPI == kActInner) {
-    if (a.bm <= 16) launch<BITS, 1, 2, EPI>(a, S, a.F / 8, st);
-    else launch<BITS, 2, 2, EPI>(a, S, a.F / 8, st);
-  } else {
-    if (a.bm <= 16) launch<BITS, 1, 1, EPI>(a, S, a.N / 8, st);
-    else if (a.N % 32 == 0) launch<BITS, 2, 4, EPI>(a, S, a.N / 32, st);
-    else launch<BITS, 2, 1, EPI>(a, S, a.N / 8, st);
-  }
+  if (a.bm <= 16) launch<BITS, 1, 1, kStoreMasked>(a, S, a.N / 8, st);
+  else if (a.N % 32 == 0) launch<BITS, 2, 4, kStoreMasked>(a, S, a.N / 32, st);
+  else launch<BITS, 2, 1, kStoreMasked>(a, S, a.N / 8, st);
 }
 
-template <int EPI>
 int pass_bits(int bits, const PassArgs& a, int S, cudaStream_t st) {
   switch (bits) {
-    case 2: pass<2, EPI>(a, S, st); break;
-    case 4: pass<4, EPI>(a, S, st); break;
-    case 8: pass<8, EPI>(a, S, st); break;
+    case 2: pass<2>(a, S, st); break;
+    case 4: pass<4>(a, S, st); break;
+    case 8: pass<8>(a, S, st); break;
     default: return -1;
   }
   return (int)cudaGetLastError();
+}
+
+// A cluster split that a pass over K rows in groups of g takes.
+bool split_ok(int split, int K, int g) {
+  return split >= 1 && split <= kDecodeMaxSplit && split <= K / g;
 }
 
 }  // namespace gqt
@@ -325,9 +320,9 @@ using gqt::PassArgs;
 // CUDA error of its launches. The caller (ops/qmoe.py) checks the contract:
 // bf16 rows of K with 16-byte aligned rows, bm a multiple of 8 up to 32,
 // g % 128 == 0 and K % g == 0, N % 8 == 0, int32 plan arrays on the device,
-// S <= 65535; for K10 also 16-byte aligned weights and scales (the ring
-// copies them in 16-byte pieces), D % 128 == 0 and the cluster splits of
-// its launch plan; and allocates the outputs and scratch.
+// S <= 65535; for K10, K11 and K12 also 16-byte aligned weights and scales
+// (the ring copies them in 16-byte pieces), D % 128 == 0 and the cluster
+// splits of their launch plans; and allocates the outputs and scratch.
 
 // K13: out [S*bm, N] (f32 or bf16) = each slot's rows x dequant(qw[ids[s]]).
 extern "C" int gqt_qmoe_matmul(const void* x, const void* ids, const void* counts, int S,
@@ -337,30 +332,8 @@ extern "C" int gqt_qmoe_matmul(const void* x, const void* ids, const void* count
   PassArgs a{static_cast<const __nv_bfloat16*>(x), K, static_cast<const int*>(ids),
              static_cast<const int*>(counts), nullptr, bm, K, N,
              static_cast<const uint32_t*>(qw), static_cast<const __nv_bfloat16*>(sc), Gp, g,
-             zc, out, out_f32, 0};
-  return gqt::pass_bits<gqt::kStoreMasked>(bits, a, S, static_cast<cudaStream_t>(stream));
-}
-
-// K11 (n_used given) and K12 (n_used NULL): the expert MLP per slot, the ic
-// contract, inner [S*bm, F] bf16 scratch, out [S*bm, D] (f32 or bf16).
-extern "C" int gqt_qmoe_mlp(const void* x, const void* ids, const void* counts,
-                            const void* n_used, int S, int bm, int D, int F, const void* qw_gu,
-                            const void* s_gu, int Gp_gu, const void* qw_d, const void* s_d,
-                            int Gp_d, int g, float zc_gu, float zc_d, int bits, int out_f32,
-                            void* inner, void* out, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* idp = static_cast<const int*>(ids);
-  const int* cp = static_cast<const int*>(counts);
-  const int* up = static_cast<const int*>(n_used);
-  PassArgs gu{static_cast<const __nv_bfloat16*>(x), D, idp, cp, up, bm, D, 2 * F,
-              static_cast<const uint32_t*>(qw_gu), static_cast<const __nv_bfloat16*>(s_gu),
-              Gp_gu, g, zc_gu, inner, 0, F};
-  int rc = gqt::pass_bits<gqt::kActInner>(bits, gu, S, st);
-  if (rc != 0) return rc;
-  PassArgs dn{static_cast<const __nv_bfloat16*>(inner), F, idp, cp, up, bm, F, D,
-              static_cast<const uint32_t*>(qw_d), static_cast<const __nv_bfloat16*>(s_d),
-              Gp_d, g, zc_d, out, out_f32, 0};
-  return gqt::pass_bits<gqt::kStoreMasked>(bits, dn, S, st);
+             zc, out, out_f32};
+  return gqt::pass_bits(bits, a, S, static_cast<cudaStream_t>(stream));
 }
 
 namespace gqt {
@@ -405,7 +378,59 @@ int e2e_bits(int rt_gu, int rt_d, const E2eArgs& a) {
   return rt_d ? e2e_passes<BITS, false, true>(a) : e2e_passes<BITS, false, false>(a);
 }
 
+// K11's and K12's operands: x [S*bm, D] slot-sorted bf16 rows, the passes'
+// zeros and plans, weights, cluster splits, inner [S*bm, F] scratch and out.
+struct SlotMlpArgs {
+  const void* x;
+  MoeSlotGateUp<DequantFirst<UniformZero>> gu;
+  MoeSlotDown<DequantFirst<UniformZero>> dn;
+  int S, bm, D, F, g;
+  const void *qw_gu, *s_gu, *qw_d, *s_d;
+  int split_gu, split_d;
+  void *inner, *out;
+  cudaStream_t st;
+};
+
+template <int BITS>
+int slot_mlp_passes(const SlotMlpArgs& a) {
+  const int rc = launch_moe_pass<BITS>(a.x, a.bm, a.D, a.qw_gu, a.s_gu, 2 * a.F, a.g, a.gu,
+                                       a.split_gu, a.S, a.inner, a.st);
+  if (rc != 0) return rc;
+  return launch_moe_pass<BITS>(a.inner, a.bm, a.F, a.qw_d, a.s_d, a.D, a.g, a.dn, a.split_d,
+                               a.S, a.out, a.st);
+}
+
 }  // namespace gqt
+
+// K11 (n_used given) and K12 (n_used NULL): the expert MLP per slot in the
+// ic contract, inner [S*bm, F] bf16 scratch, out [S*bm, D] (f32 or bf16),
+// both passes on the decode ring with the launch plan's cluster splits
+// (ops/qmoe.py, slot_mlp_plan). Also -1, before any launch, for a split
+// outside 1 .. min(8, K / g) of either pass.
+extern "C" int gqt_qmoe_mlp(const void* x, const void* ids, const void* counts,
+                            const void* n_used, int S, int bm, int D, int F, const void* qw_gu,
+                            const void* s_gu, int Gp_gu, const void* qw_d, const void* s_d,
+                            int Gp_d, int g, float zc_gu, float zc_d, int bits, int split_gu,
+                            int split_d, int out_f32, void* inner, void* out, void* stream) {
+  if (!gqt::split_ok(split_gu, D, g) || !gqt::split_ok(split_d, F, g)) return -1;
+  gqt::SlotMlpArgs a{x, {}, {}, S, bm, D, F, g, qw_gu, s_gu, qw_d, s_d, split_gu, split_d,
+                     inner, out, static_cast<cudaStream_t>(stream)};
+  const int* idp = static_cast<const int*>(ids);
+  const int* up = static_cast<const int*>(n_used);
+  const gqt::SlotRows rows{static_cast<const int*>(counts), out_f32};
+  a.gu.zc = zc_gu;
+  a.gu.plan = {idp, up, nullptr, nullptr, Gp_gu};
+  a.gu.rows = rows;
+  a.dn.zc = zc_d;
+  a.dn.plan = {idp, up, nullptr, nullptr, Gp_d};
+  a.dn.rows = rows;
+  switch (bits) {
+    case 2: return gqt::slot_mlp_passes<2>(a);
+    case 4: return gqt::slot_mlp_passes<4>(a);
+    case 8: return gqt::slot_mlp_passes<8>(a);
+    default: return -1;
+  }
+}
 
 // K10: out [N, D] (f32 or bf16) = per token, the sum in slot order of
 // w * expert_mlp(x[token]) over its slot rows; inner [S*bm, F] bf16 and
@@ -421,11 +446,8 @@ extern "C" int gqt_qmoe_e2e(const void* x, const void* ids, const void* n_used,
                             int split_gu, int split_d, int out_f32, void* inner, void* ybuf,
                             void* out, void* stream) {
   // both splits before either pass launches
-  const auto split_ok = [](int split, int K, int g) {
-    return split >= 1 && split <= gqt::kDecodeMaxSplit && split <= K / g;
-  };
-  if (topk < 1 || topk > gqt::kMaxTopk || D % 128 || !split_ok(split_gu, D, g_gu) ||
-      !split_ok(split_d, F, g_d))
+  if (topk < 1 || topk > gqt::kMaxTopk || D % 128 || !gqt::split_ok(split_gu, D, g_gu) ||
+      !gqt::split_ok(split_d, F, g_d))
     return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* idp = static_cast<const int*>(ids);
@@ -447,8 +469,8 @@ extern "C" int gqt_qmoe_e2e(const void* x, const void* ids, const void* n_used,
   return (int)cudaGetLastError();
 }
 
-// The dynamic shared memory of a K10 pass's block at bm rows a slot (its
-// ring), or -1 for unsupported bits or bm.
+// The dynamic shared memory of a K10, K11 or K12 pass's block at bm rows a
+// slot (its ring), or -1 for unsupported bits or bm.
 extern "C" int gqt_qmoe_smem_bytes(int bits, int bm) {
   if (bm < 8 || bm > gqt::kDecodeMoeMaxM || bm % 8) return -1;
   switch (bits) {

@@ -140,7 +140,7 @@ def lib() -> ctypes.CDLL:
             handle.gqt_qmoe_matmul.argtypes = [vp] * 3 + [i] * 4 + [vp, vp, i, i, f, i, i, vp, vp]
             handle.gqt_qmoe_matmul.restype = i
             handle.gqt_qmoe_mlp.argtypes = ([vp] * 4 + [i] * 4 + [vp, vp, i, vp, vp, i, i, f, f]
-                                            + [i, i, vp, vp, vp])
+                                            + [i] * 4 + [vp] * 3)
             handle.gqt_qmoe_mlp.restype = i
             handle.gqt_qmoe_e2e.argtypes = ([vp] * 6 + [i] * 6 + [vp, vp, i, vp, vp, i, i, i]
                                             + [f, f] + [i] * 6 + [vp] * 4)

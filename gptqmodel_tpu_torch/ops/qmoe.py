@@ -16,7 +16,9 @@ Kernels (``csrc/qmoe.cu``), each with its plain PyTorch version here:
   slot of the static grid (``_qmoe_mlp_kernel``, ``:362``).
 - K11 ``qmoe_mlp_matmul_dyn``: K12 over the used slots, whose number it
   reads on the device (``_qmoe_mlp_dyn_kernel``, ``:534``); bit-equal to
-  K12.
+  K12. Both run their two passes on the decode kernel's shared-memory ring
+  (``csrc/qmm_decode.cuh``), as K10 does, with the cluster splits of
+  ``e2e_plan`` for the slot bound; K13 runs ``qmoe.cu``'s ``qmoe_pass_kernel``.
 - K10 ``qmoe_mlp_e2e``: the whole layer after routing: gathers each slot's
   token rows, runs the expert MLP and adds ``w·y`` into each token's row in
   float32, in slot order (ascending expert id), then rounds once
@@ -473,13 +475,26 @@ def _mlp_kernel(name, x_sorted, expert_ids, row_count, n_used, qw_gu, s_gu, qw_d
         raise ValueError(f"x_sorted of {x_sorted.shape[0]} rows for {S} slots of {bm}")
     if D // G_gu != F // G_d:
         raise ValueError("the fused MoE kernels take one group size for gate|up and down")
+    if any(t.data_ptr() % 16 for t in (qw_gu, s_gu, qw_d, s_d)):
+        raise ValueError("K11 and K12 copy weights and scales in 16-byte pieces: both "
+                         "stacks' qweight and scales must be 16-byte aligned")
     inner = torch.empty((S * bm, F), dtype=torch.bfloat16, device=x_sorted.device)
     out = torch.empty((S * bm, D), dtype=out_dtype, device=x_sorted.device)
-    rc = _build.lib().gqt_qmoe_mlp(
+    if S == 0:
+        return out
+    lib = _build.lib()
+    E, sms = qw_gu.shape[0], _sm_count(x_sorted.device.index or 0)
+    # K10's plan with the slot bound S standing in for the routed rows, which
+    # stay on the device: shapes only, so K11 and K12 get the same splits from
+    # the same inputs and give the same bits; at Qwen3-30B-A3B's widths these
+    # are the splits K10 gets for the rows that fill those slots.
+    plan_gu = e2e_plan(S, E, D, 2 * F, D // G_gu, sms)
+    plan_d = e2e_plan(S, E, F, D, F // G_d, sms)
+    rc = lib.gqt_qmoe_mlp(
         x_sorted.data_ptr(), expert_ids.data_ptr(), row_count.data_ptr(),
         n_used.data_ptr() if n_used is not None else None, S, bm, D, F,
         qw_gu.data_ptr(), s_gu.data_ptr(), s_gu.shape[1], qw_d.data_ptr(), s_d.data_ptr(),
-        s_d.shape[1], D // G_gu, float(zc_gu), float(zc_d), bits,
+        s_d.shape[1], D // G_gu, float(zc_gu), float(zc_d), bits, plan_gu.split, plan_d.split,
         int(out_dtype == torch.float32), inner.data_ptr(), out.data_ptr(), _stream(x_sorted))
     _build.check(rc, name)
     return out
@@ -497,7 +512,8 @@ def qmoe_mlp_matmul(x_sorted, expert_ids, row_count, qw_gu, s_gu, qw_d, s_d, *, 
                                      s_d, **kw)
     out = _mlp_kernel("qmoe_mlp", x_sorted, expert_ids, row_count, None, qw_gu, s_gu, qw_d,
                       s_d, **kw)
-    _build.LAUNCHES["qmoe_mlp"] += 1
+    if expert_ids.shape[0]:  # no slots: nothing was launched
+        _build.LAUNCHES["qmoe_mlp"] += 1
     return out
 
 
@@ -513,7 +529,8 @@ def qmoe_mlp_matmul_dyn(x_sorted, expert_ids, row_count, n_used, qw_gu, s_gu, qw
                                          s_gu, qw_d, s_d, **kw)
     out = _mlp_kernel("qmoe_mlp_dyn", x_sorted, expert_ids, row_count, n_used, qw_gu, s_gu,
                       qw_d, s_d, **kw)
-    _build.LAUNCHES["qmoe_mlp_dyn"] += 1
+    if expert_ids.shape[0]:  # no slots: nothing was launched
+        _build.LAUNCHES["qmoe_mlp_dyn"] += 1
     return out
 
 

@@ -1072,28 +1072,106 @@ def _sorted_case(rng, N, k, E, D, dev, bm=8):
 
 
 @pytest.mark.parametrize("bits", [2, 4, 8])
-@pytest.mark.parametrize("N", [8, 128])
+@pytest.mark.parametrize("N", [1, 8, 128])
+@pytest.mark.parametrize("bm", [8, 32])
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
-def test_qmoe_slot_mlp_kernels_match_plain(cuda_device, bits, N, out_dtype):
+def test_qmoe_slot_mlp_kernels_match_plain(cuda_device, bits, N, bm, out_dtype):
     """K11 and K12 against their plain version (ic contract, inner rounded to
-    bf16: 2e-3 relative); K11 equals K12 bit for bit, every run."""
-    rng = np.random.default_rng(bits * 7 + N)
+    bf16: 2e-3 relative); K11 equals K12 bit for bit, every run; skipped
+    slots and rows past the count are exactly 0 in an output whose memory
+    held NaN (no memset); K11 skips the slots at or past a smaller n_used;
+    the profiler sees only the decode ring's slot passes."""
+    rng = np.random.default_rng(bits * 7 + N + (bm - 8))
     E, D, F, k = 16, 512, 256, 8
     gu, down = _stacks(rng, E, D, F, bits, cuda_device)
-    xs, ids, counts = _sorted_case(rng, N, k, E, D, cuda_device)
-    n_used = (counts > 0).sum().to(torch.int32).reshape(1)
+    xs, ids, counts = _sorted_case(rng, N, k, E, D, cuda_device, bm)
+    used = int((counts > 0).sum())
+    n_used = torch.tensor([used], dtype=torch.int32, device=cuda_device)
     w = (gu.qweight, gu.scales, down.qweight, down.scales)
-    kw = dict(bits=bits, G_gu=gu.G, G_d=down.G, F=F, bm=8, zc_gu=gu.zero_const,
+    kw = dict(bits=bits, G_gu=gu.G, G_d=down.G, F=F, bm=bm, zc_gu=gu.zero_const,
               zc_d=down.zero_const, out_dtype=out_dtype)
+    dyn = lambda n: qmoe.qmoe_mlp_matmul_dyn(xs, ids, counts, n, *w, **kw)
+    grid = lambda: qmoe.qmoe_mlp_matmul(xs, ids, counts, *w, **kw)
+    # the caching allocator hands the outputs memory that held NaN
+    torch.full((4 * xs.shape[0], D), float("nan"), device=cuda_device)
     _build.reset_counts()
-    dyn = qmoe.qmoe_mlp_matmul_dyn(xs, ids, counts, n_used, *w, **kw)
-    grid = qmoe.qmoe_mlp_matmul(xs, ids, counts, *w, **kw)
+    y_dyn, y_grid = dyn(n_used), grid()
     ref = qmoe.qmoe_mlp_matmul_plain(xs, ids, counts, *w, **kw)
     torch.cuda.synchronize()
     assert (_build.LAUNCHES["qmoe_mlp_dyn"], _build.LAUNCHES["qmoe_mlp"]) == (1, 1)
-    assert dyn.dtype == out_dtype and torch.equal(dyn, grid)
-    assert torch.equal(dyn, qmoe.qmoe_mlp_matmul_dyn(xs, ids, counts, n_used, *w, **kw))
-    assert _rel(dyn, ref) <= 2e-3
+    assert y_dyn.dtype == out_dtype and torch.equal(y_dyn, y_grid)
+    assert torch.equal(y_dyn, dyn(n_used)) and torch.equal(y_grid, grid())
+    assert _rel(y_dyn, ref) <= 2e-3
+    rows = torch.arange(bm, device=cuda_device)[None, :] < counts[:, None]
+    assert not y_dyn.reshape(-1, bm, D)[~rows].any()
+    assert torch.isfinite(y_dyn).all()
+
+    fewer = max(used - 2, 0)  # K11 at a smaller n_used: the slots past it 0
+    y_few = dyn(torch.tensor([fewer], dtype=torch.int32, device=cuda_device))
+    y_few, y_all = y_few.reshape(-1, bm, D), y_dyn.reshape(-1, bm, D)
+    assert torch.equal(y_few[:fewer], y_all[:fewer]) and not y_few[fewer:].any()
+
+    ring = lambda z: [n for n in names if "qmm_decode_kernel<" in n and z in n]
+    for _ in range(3):  # CUPTI now and then loses a session's records
+        names = _kernel_names(lambda: (dyn(n_used), grid()))
+        if ring("MoeSlotGateUp") and ring("MoeSlotDown"):
+            break
+    assert len(ring("MoeSlotGateUp")) == len(ring("MoeSlotDown")) == 1
+    assert len(names) == 2 and not [n for n in names if "qmoe_pass_kernel" in n], names
+
+
+def test_qmoe_slot_mlp_refuses_a_split_or_pointers_it_does_not_take(cuda_device, monkeypatch):
+    """K11's and K12's C entry refuses a cluster split outside 1 .. min(8, K
+    / g) of either pass (down: F = 256 is 2 groups); an unaligned qweight or
+    scales raises before the launch."""
+    rng = np.random.default_rng(46)
+    E, D, F, N, k = 16, 512, 256, 8, 8
+    gu, down = _stacks(rng, E, D, F, 4, cuda_device)
+    xs, ids, counts = _sorted_case(rng, N, k, E, D, cuda_device)
+    kw = dict(bits=4, G_gu=gu.G, G_d=down.G, F=F, bm=8, zc_gu=gu.zero_const,
+              zc_d=down.zero_const)
+    run = lambda g, d: qmoe.qmoe_mlp_matmul(xs, ids, counts, g.qweight, g.scales, d.qweight,
+                                            d.scales, **kw)
+    plan = qmoe.e2e_plan
+    for split in (0, 3, 9):
+        monkeypatch.setattr(qmoe, "e2e_plan",
+                            lambda *a, s=split: dataclasses.replace(plan(*a), split=s))
+        with pytest.raises(ValueError, match="unsupported"):
+            run(gu, down)
+    monkeypatch.undo()
+    for g, d in ((dataclasses.replace(gu, qweight=_unaligned(gu.qweight)), down),
+                 (gu, dataclasses.replace(down, scales=_unaligned(down.scales)))):
+        with pytest.raises(ValueError, match="aligned"):
+            run(g, d)
+
+
+def test_slot_mlp_matches_k10_ic_bit_for_bit(cuda_device):
+    """Where the two launch plans agree (here one cluster block a pass), K11
+    with its y kept in float32 and the model's combine equals K10 in the ic
+    contract bit for bit: the same ring, split and bm give each row the same
+    float32 sums, and both combines multiply by w and add in ascending slot
+    order from 0 in float32."""
+    rng = np.random.default_rng(19)
+    E, D, F, N, k, bm = 16, 512, 256, 8, 8, 8
+    gu, down = _stacks(rng, E, D, F, 4, cuda_device)
+    gu, down = dataclasses.replace(gu, rt=False), dataclasses.replace(down, rt=False)
+    x = _x(rng, N, D, cuda_device)
+    top_w, top_i = _routes(rng, N, E, k, cuda_device)
+    M = N * k
+    S = qmoe.slot_bound(M, E, bm)
+    for K, Nout in ((D, 2 * F), (F, D)):
+        assert qmoe.e2e_plan(S, E, K, Nout, 128).split == qmoe.e2e_plan(
+            M, E, K, Nout, 128).split
+    y10 = _e2e(x, top_w, top_i, gu, down, bm)
+    flat = top_i.reshape(-1)
+    order = torch.sort(flat, stable=True).indices
+    ids, counts, pos = qmoe.plan_slots(flat[order], E, bm, S)
+    xs = torch.zeros((S * bm, D), dtype=torch.bfloat16, device=cuda_device)
+    xs[pos.long()] = x[order // k]
+    y11 = qmoe.qmoe_mlp_forward_sorted(xs, ids, counts, gu, down, act="silu", bm=bm)
+    w = top_w.reshape(-1)[order].to(torch.float32)
+    out = transformer._combine_sorted(y11, pos, w, order, N, k).to(torch.bfloat16)
+    assert torch.equal(out, y10)
 
 
 @pytest.mark.parametrize("bits", [2, 4, 8])

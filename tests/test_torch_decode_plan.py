@@ -1,7 +1,8 @@
 """The launch plan of the decode kernel of K1, K3, K4, K5, K6, K7 and K2
-(``ops/qmatmul.py``, ``decode_plan``) and of K10's passes (``ops/qmoe.py``,
-``e2e_plan``), which the wrappers hand to the C entries: invariants over
-shapes inside the kernels' contract, and the split it gives each of
+(``ops/qmatmul.py``, ``decode_plan``) and of K10's, K11's and K12's passes
+(``ops/qmoe.py``, ``e2e_plan``; K11 and K12 take it for the slot bound),
+which the wrappers hand to the C entries: invariants over shapes inside
+the kernels' contract, and the split it gives each of
 Llama-3-8B's and Qwen3-30B-A3B's projections and MoE passes on an H100.
 K6's small groups split K in 128-row chunks, and its shapes outside the
 decode contract take the register tile by the plan's rule
@@ -452,3 +453,109 @@ def test_k10_rings_fit_a_block():
     ring = lib.gqt_qmoe_smem_bytes(4, 8)
     resident = props.shared_memory_per_multiprocessor // (ring + BLOCK_RESERVED_SMEM)
     assert resident >= qmoe.E2E_BLOCKS_PER_SM
+
+
+# ------------------------------------- K11 and K12 (qmoe_mlp_matmul(_dyn))
+
+
+def _slot_mlp_call(monkeypatch, S, bm, dyn):
+    """K11 (``dyn``) or K12 over S slots of Qwen3-30B-A3B at bm rows a slot
+    (meta tensors, a stand-in library, fresh launch counts): the output and
+    the arguments of each ``gqt_qmoe_mlp`` call."""
+    calls = []
+
+    def gqt_qmoe_mlp(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(_build, "lib", lambda: SimpleNamespace(gqt_qmoe_mlp=gqt_qmoe_mlp))
+    monkeypatch.setattr(_build, "LAUNCHES", dict.fromkeys(_build.LAUNCHES, 0))
+    monkeypatch.setattr(qmoe, "_sm_count", lambda index: H100_SMS)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: SimpleNamespace(cuda_stream=0))
+    D, F, E = (QWEN3_MOE[n] for n in "DFE")
+    meta = lambda shape, dtype: torch.empty(shape, dtype=dtype, device="meta")
+    i32, bf16 = torch.int32, torch.bfloat16
+    w = (meta((E, D // 8, 2 * F), i32), meta((E, 16, 2 * F), bf16), meta((E, F // 8, D), i32),
+         meta((E, 8, D), bf16))
+    kw = dict(bits=4, G_gu=D // 128, G_d=F // 128, F=F, bm=bm, zc_gu=8.0, zc_d=8.0)
+    x, ids, counts = meta((S * bm, D), bf16), meta((S,), i32), meta((S,), i32)
+    if dyn:
+        y = qmoe.qmoe_mlp_matmul_dyn(x, ids, counts, meta((1,), i32), *w, **kw)
+    else:
+        y = qmoe.qmoe_mlp_matmul(x, ids, counts, *w, **kw)
+    assert y.shape == (S * bm, D)
+    return y, calls
+
+
+def _slot_mlp_splits(monkeypatch, N, bm, dyn):
+    """The (gate|up, down) cluster splits that K11 (``dyn``) or K12 hands
+    ``gqt_qmoe_mlp`` for N tokens of Qwen3-30B-A3B at bm rows a slot."""
+    k, E = QWEN3_MOE["k"], QWEN3_MOE["E"]
+    _, calls = _slot_mlp_call(monkeypatch, qmoe.slot_bound(N * k, E, bm), bm, dyn)
+    assert len(calls) == 1
+    assert (calls[0][3] is not None) == dyn  # n_used: K11's, none for K12
+    return calls[0][18], calls[0][19]
+
+
+@pytest.mark.parametrize("dyn", [False, True])
+def test_slot_mlp_counts_only_the_launches_it_makes(monkeypatch, dyn):
+    """K11 and K12 add one to their launch count where they call
+    ``gqt_qmoe_mlp``, and nothing where there is no slot and no launch."""
+    key = "qmoe_mlp_dyn" if dyn else "qmoe_mlp"
+    _, calls = _slot_mlp_call(monkeypatch, 72, 8, dyn)
+    assert len(calls) == 1 and _build.LAUNCHES[key] == 1
+    _, calls = _slot_mlp_call(monkeypatch, 0, 8, dyn)
+    assert calls == [] and _build.LAUNCHES[key] == 0
+
+
+@pytest.mark.parametrize("bm", K10_BMS)
+@pytest.mark.parametrize("N", [1, 8, 128])
+def test_slot_mlp_plan_is_the_same_for_k11_and_k12(monkeypatch, N, bm):
+    """K11 and K12 hand their C entry the same splits for the same inputs,
+    those of ``e2e_plan`` for the slot bound: their rows' float32 sums
+    are then the same sequence, and their outputs equal bit for bit."""
+    D, F, E, k = (QWEN3_MOE[n] for n in "DFEk")
+    S = qmoe.slot_bound(N * k, E, bm)
+    want = (qmoe.e2e_plan(S, E, D, 2 * F, 128).split,
+            qmoe.e2e_plan(S, E, F, D, 128).split)
+    assert _slot_mlp_splits(monkeypatch, N, bm, True) == want
+    assert _slot_mlp_splits(monkeypatch, N, bm, False) == want
+
+
+@pytest.mark.parametrize("N", [1, 8, 128])
+def test_slot_mlp_plan_gives_k10_splits_at_qwen3(N):
+    """At Qwen3-30B-A3B's widths and the model's 8 rows a slot, the slot
+    plan (from the slot bound) gives each pass the split that K10's plan
+    gives for the routed rows: both run one ring, split and bm."""
+    D, F, E, k = (QWEN3_MOE[n] for n in "DFEk")
+    S = qmoe.slot_bound(N * k, E, 8)
+    for K, Nout in ((D, 2 * F), (F, D)):
+        assert qmoe.e2e_plan(S, E, K, Nout, 128) == qmoe.e2e_plan(N * k, E, K, Nout, 128)
+
+
+@pytest.mark.cuda
+def test_slot_mlp_rings_fit_a_block():
+    """K11's and K12's passes run K10's ring: at every bm (8 to 32 rows a
+    slot) and width the library's size (``gqt_qmoe_smem_bytes``) fits what a
+    block of the card may take, and both passes launch at that bm."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the sizes come from the CUDA library")
+    props = torch.cuda.get_device_properties(0)
+    lib = _build.lib()
+    dev = torch.device("cuda")
+    E, D, F = 2, 256, 128
+    for bits in KERNEL_BITS:
+        pf = 32 // bits
+        w = (torch.zeros((E, D // pf, 2 * F), dtype=torch.int32, device=dev),
+             torch.zeros((E, 8, 2 * F), dtype=torch.bfloat16, device=dev),
+             torch.zeros((E, F // pf, D), dtype=torch.int32, device=dev),
+             torch.zeros((E, 8, D), dtype=torch.bfloat16, device=dev))
+        for bm in K10_BMS:
+            assert 0 < lib.gqt_qmoe_smem_bytes(bits, bm) <= props.shared_memory_per_block_optin
+            x = torch.ones((2 * bm, D), dtype=torch.bfloat16, device=dev)
+            ids = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+            counts = torch.tensor([bm, 1], dtype=torch.int32, device=dev)
+            y = qmoe.qmoe_mlp_matmul(x, ids, counts, *w, bits=bits, G_gu=D // 128,
+                                     G_d=F // 128, F=F, bm=bm, zc_gu=0.0, zc_d=0.0)
+            torch.cuda.synchronize()
+            assert y.shape == (2 * bm, D) and not y.any()
