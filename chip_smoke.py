@@ -13,10 +13,10 @@ Phases, each printing JSON lines on stdout:
    and K5's rings at 3, 5, 6 and 7 bits), and its instantiations and K10's
    ring by bm (``gqt_qmoe_smem_bytes``); it fails if K1's, K2's, K4's,
    K5's or K6's old 16-row tile is still built, if K4's, K5's (every
-   layout, one and two n-tiles, both zero types), K6's, K10's or K11's and
-   K12's (``MoeSlotGateUp``, ``MoeSlotDown``) decode instantiations are
-   missing, if ``qmoe_pass_kernel`` is built for anything but K13's masked
-   store (``<bits, MT, NT, 0>``) or lacks one of K13's, or if the main loop
+   layout, one and two n-tiles, both zero types), K6's, K10's or K11's,
+   K12's and K13's (``MoeSlotGateUp``, ``MoeSlotDown``) decode
+   instantiations are missing, if any ``qmoe_pass_kernel`` (K11-K13's
+   kernel before they ran on the ring) is still built, or if the main loop
    of K4's 3-bit stitched decode kernel (``cuobjdump -sass``) spends more
    than ``K4_LOOP_LOP3`` LOP3 a 128-row chunk (one a code pair, and 8).
 2. ``kernels``: each kernel against its plain PyTorch version on the card,
@@ -52,7 +52,9 @@ Phases, each printing JSON lines on stdout:
    K11 and K12 (``qmoe_mlp_matmul_dyn``, ``qmoe_mlp_matmul``) at N = 8 and
    128, equal to each other and each to a second run of itself, their
    kernel names the decode kernel's (``MoeSlotGateUp``, ``MoeSlotDown``),
-   and K13 (``qmoe_matmul``) on gate|up and down at N = 8 and 128; their
+   and K13 (``qmoe_matmul``) on gate|up and down at N = 8 and 128, its
+   kernel names the decode kernel's ``MoeSlotDown`` alone, and on K12's own
+   inner equal to K12's output bit for bit (f32 and bf16); their
    bound counts the distinct routed experts' words and scales, once each,
    and the routed rows' operations. Then K6
    (``qmm``, groups of 32 and 64, and 16 with random zeros) at the same four
@@ -150,13 +152,14 @@ Phases, each printing JSON lines on stdout:
    as a 3-bit v1 checkpoint, the re-save byte-equal, and ``generate(ids,
    8)`` on K4 alone.
 17. ``moe-slice``: a GPTQ v1 checkpoint at Qwen3-30B-A3B's published widths
-   and all 48 layers (4-bit, symmetric, group 128, dense router and
-   lm_head; random weights drawn on the card from a seed, about 17 GB) is
-   written under ``build/``, then ``GPTQModel.load(dir).optimize()
-   .generate(ids, 64)`` at B = 8, T = 128, bf16 KV. Asserted: 2 K1 (qkv, o)
+   and ``MOE_LAYERS`` = 16 of its 48 layers (4-bit, symmetric, group 128,
+   dense router and lm_head; random weights drawn on the card from a seed,
+   about 6.5 GB) is written under ``build/``, then
+   ``GPTQModel.load(dir).optimize().generate(ids, 64)`` at B = 8, T = 128,
+   bf16 KV. Asserted: 2 K1 (qkv, o)
    and 1 K10 per layer in the prefill and in every decode step, no other
    kernel; K10's passes in the profiled decode steps on the decode ring
-   (``MoeGateUp``, ``MoeDown``), no ``qmoe_pass_kernel``. Printed: load s
+   (``MoeGateUp``, ``MoeDown``) and its combine. Printed: load s
    and peak memory, device memory, prefill ms, decode ms per step, tokens/s,
    the device's busy share and K10's device ms per step by pass.
 18. ``compare-moe``: its first 2 layers, the kernel path against the plain
@@ -176,12 +179,13 @@ Phases, each printing JSON lines on stdout:
 
 Then ``{"phase": "profiler"}``: how many torch.profiler sessions lost
 kernel records and were run again, how many were read from the records
-they kept (``device_ms``), and how many timed loops of K1-K7 and K10-K12
+they kept (``device_ms``), and how many timed loops of K1-K7 and K10-K13
 read under their bound and were timed again (``timed``; a third such
-reading fails the run). K1's, K2's, K4's, K5's, K6's, K11's and K12's cases
-also name the kernels the profiler saw; at M <= 16 (K11, K12: always) they
+reading fails the run). K1's, K2's, K4's, K5's, K6's and K10-K13's cases
+also name the kernels the profiler saw; at M <= 16 (K10-K13: always) they
 must all be ``qmm_decode_kernel`` (K6: its ``DequantFirst`` instantiation,
-K4 and K5: ``Units``, K11 and K12: ``MoeSlotGateUp`` and ``MoeSlotDown``).
+K4 and K5: ``Units``, K11 and K12: ``MoeSlotGateUp`` and ``MoeSlotDown``,
+K13: ``MoeSlotDown``; K10 also its combine).
 Then the card's name and power limit, the ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Each record of the kernels line
 names its units: ``launches`` counts a whole run of the main path
@@ -195,7 +199,8 @@ one decode step at B = 8 (K1 and K7 over qkv and o of every layer, K2 over
 every layer's MLP, K3, K6, K4 and K5 over qkv, o, gate_up and down of every
 layer, K6 at group 32, symmetric, K4 and K5 at 3 bits, stitched), K8 and K9 one quantized
 layer (K8 one solve of each group, K9 each group's 128-column blocks), K10
-one decode step at B = 8 over the 48 MoE layers (rt; also ``ms_by_pass``),
+one decode step at B = 8 over the moe-slice's 16 layers (rt; also
+``ms_by_pass``),
 K11-K13 one MoE layer at
 N = 8 tokens (K13 gate|up and down). A failed check raises and exits
 non-zero. Without a CUDA device it exits 1 and prints no result. The
@@ -282,9 +287,11 @@ K8_MISMATCH, K8_DQ_RTOL, K8_DQ_ATOL, K8_SCALE_RTOL, K8_LOSS_RTOL = 2e-3, 1e-4, 2
 # the solve's groups at Llama-3-8B's widths: out x in, g = 128, 4-bit, sym
 SOLVE_SHAPES = {"qkv": (6144, 4096), "o": (4096, 4096), "gate_up": (28672, 4096),
                 "down": (4096, 14336)}
-# the quantize phase's depth: 16 of Llama-3-8B's 32 layers, cut so that the
-# whole script, the 48-layer MoE slice included, stays near 10 minutes
+# the quantize phase's depth: 16 of Llama-3-8B's 32 layers
 QUANT_LAYERS = 16
+# the moe-slice's depth: 16 of Qwen3-30B-A3B's 48 layers, cut so that the
+# whole script stays well inside its 1200 s (888-1035 s with all 48)
+MOE_LAYERS = 16
 Q_ROWS, Q_T, Q_BATCH = 128, 512, 4  # calibration: seeded token ids
 # quantize-act and quantize-g32: the quantize phase's checkpoint, its first 2
 # layers, through QuantizeConfig(sym=False, desc_act=True) or
@@ -812,10 +819,11 @@ def slot_inputs(gu, dn, router, g, N: int, bm: int = 8) -> dict:
 
 def moe_kernel_cases(dev) -> list:
     """K10 at N = 1, 8 and 1024 tokens (two runs each, for equal bits), K11
-    and K12 at N = 8 and 128 (equal to each other and to a second run, on
-    the decode ring by the profiler's names), K13 gate|up and down at
-    N = 8 and 128, at Qwen3-30B-A3B's widths, each against its plain
-    version, the stacks rotated through copies past the L2."""
+    and K12 at N = 8 and 128 (equal to each other and to a second run), K13
+    gate|up and down at N = 8 and 128 (its down on K12's inner equal to
+    K12), all on the decode ring by the profiler's names, at
+    Qwen3-30B-A3B's widths, each against its plain version, the stacks
+    rotated through copies past the L2."""
     import torch
     import torch.nn.functional as F_
 
@@ -828,8 +836,8 @@ def moe_kernel_cases(dev) -> list:
     def case(kernel, N, M, y, ref, kern, plain, n_bytes, ops, tol, **extra):
         rel, mx = errors(y, ref)
         b_ms, b_by = bound(n_bytes, ops)
-        k10, slot = kernel == "qmoe_e2e", kernel in ("qmoe_mlp_dyn", "qmoe_mlp")
-        k = timed(kern, extra["copies"], floor_ms=b_ms if k10 or slot else 0.0)
+        k10 = kernel == "qmoe_e2e"
+        k = timed(kern, extra["copies"], floor_ms=b_ms)
         p = timed(plain, extra["copies"], budget_ms=100.0)
         c = {"kernel": kernel, "N": N, "M": M, "D": D, "F": F, "E": E, "rel_err": rel,
              "max_abs_err": mx, "ms": k["ms"], "wall_ms": k["wall_ms"], "plain_ms": p["ms"],
@@ -839,8 +847,7 @@ def moe_kernel_cases(dev) -> list:
              **extra}
         if k10:  # by pass, from the profiler's kernel names
             c["ms_by_pass"] = by_k10_pass(k["rows"])
-        if k10 or slot:
-            c["kernel_names"] = k["kernels"]
+        c["kernel_names"] = k["kernels"]
         cases.append(c)
         emit({"phase": "kernels", **c})
         require(rel <= tol, f"{kernel} N={N}: rel {rel} > {tol}")
@@ -889,6 +896,18 @@ def moe_kernel_cases(dev) -> list:
                     f"{kernel} N={N} ran {names}")
         require(equal, f"K11 and K12 differ at N={N}")
 
+        # K13's down on K12's own inner is K12's down pass alone: equal bits
+        inner12 = torch.zeros((S * bm, F), dtype=torch.bfloat16, device=dev)
+        equal_k12 = {}
+        for dt in (torch.float32, torch.bfloat16):
+            y12 = qmoe._mlp_kernel("qmoe_mlp", xs, ids, counts, None, *sets[0], inner=inner12,
+                                   **(kw | {"out_dtype": dt}))
+            y13 = qmoe.qmoe_matmul(inner12, ids, counts, dn.qweight, dn.scales, bits=4, G=dn.G,
+                                   bm=bm, zero_const=8.0, out_dtype=dt)
+            equal_k12[str(dt)] = torch.equal(y12, y13)
+        require(all(equal_k12.values()), f"K13 differs from K12's down at N={N}: {equal_k12}")
+        del inner12, y12, y13
+
         k13 = dict(bits=4, bm=bm, zero_const=8.0, out_dtype=torch.bfloat16)
         gu_out = qmoe.qmoe_matmul(xs, ids, counts, gu.qweight, gu.scales, G=gu.G, **k13)
         inner = (F_.silu(gu_out[:, :F].float()) * gu_out[:, F:].float()).to(torch.bfloat16)
@@ -901,7 +920,10 @@ def moe_kernel_cases(dev) -> list:
             y, ref = kern(0), plain(0)
             case("qmoe_matmul", N, M, y, ref, kern, plain,
                  moe_bytes(top_i, (st,), M * K, M * Nout), 2.0 * M * K * Nout, K13_TOL,
-                 proj=proj, bm=bm, slots=S, copies=len(sets))
+                 proj=proj, bm=bm, slots=S, down_equal_to_k12=equal_k12, copies=len(sets))
+            names = cases[-1]["kernel_names"]
+            require(on_decode_kernel(names) and all(SLOT_PASSES[1] in n for n in names),
+                    f"K13 {proj} N={N} ran {names}")
         del c, sets, xs, inner, gu_out
     del gu, dn
     torch.cuda.empty_cache()
@@ -1236,8 +1258,8 @@ def count_dense_fallback():
 
 def moe_phases(root: Path, card: str) -> dict:
     """``moe-slice``, ``compare-moe`` and ``moe-routes`` on a GPTQ
-    Qwen3-30B-A3B-wide checkpoint (all 48 layers, random weights from the
-    seed, drawn on the card) written under ``root``."""
+    Qwen3-30B-A3B-wide checkpoint (``MOE_LAYERS`` of its 48 layers, random
+    weights from the seed, drawn on the card) written under ``root``."""
     import torch
 
     from gptqmodel_tpu_torch import GPTQModel
@@ -1255,7 +1277,7 @@ def moe_phases(root: Path, card: str) -> dict:
     )
 
     dev = torch.device("cuda")
-    cfg = QWEN3_30B_A3B_CONFIG
+    cfg = dict(QWEN3_30B_A3B_CONFIG, num_hidden_layers=MOE_LAYERS)
     L, V = cfg["num_hidden_layers"], cfg["vocab_size"]
     out = {}
     t0 = time.perf_counter()
@@ -1309,9 +1331,9 @@ def moe_phases(root: Path, card: str) -> dict:
         **timing,
     }
     emit(rec)
-    # K10's layers ran its passes on the decode ring, and no qmoe_pass_kernel
-    require(all(k10_step.get(p, 0.0) > 0 for p in ("gate_up", "down", "combine"))
-            and "qmoe_pass_kernel" not in k10_step, f"moe-slice's decode steps ran {k10_step}")
+    # K10's layers ran its passes on the decode ring and its combine
+    require(all(k10_step.get(p, 0.0) > 0 for p in ("gate_up", "down", "combine")),
+            f"moe-slice's decode steps ran {k10_step}")
 
     # ---------------------------------------------------------- compare-moe
     spec2 = dataclasses.replace(spec, num_layers=2)
@@ -1608,16 +1630,13 @@ def on_decode_kernel(names: list) -> bool:
 def k10_pass(name: str) -> str:
     """The part of K10 a kernel name belongs to: its gate|up or down pass on
     the decode ring (``qmm_decode_kernel`` with ``MoeGateUp`` or
-    ``MoeDown``), its combine, ``qmoe_pass_kernel`` (K13's kernel, which
-    K10 no longer runs), or none of them (K11's and K12's ring passes,
+    ``MoeDown``), its combine, or none of them (K11-K13's ring passes,
     ``SLOT_PASSES``, among them)."""
     if "qmm_decode_kernel<" in name and "MoeGateUp" in name:
         return "gate_up"
     if "qmm_decode_kernel<" in name and "MoeDown" in name:
         return "down"
-    if "qmoe_combine_kernel" in name:
-        return "combine"
-    return "qmoe_pass_kernel" if "qmoe_pass_kernel" in name else "other"
+    return "combine" if "qmoe_combine_kernel" in name else "other"
 
 
 def by_k10_pass(rows) -> dict:
@@ -2195,8 +2214,7 @@ def main() -> int:
                 require(f"qmm_decode_kernel<{bits},{nt},DequantFirst,{z},0>" in decode_kernels,
                         f"no {bits}-bit K6 decode kernel on {z} for {8 * nt} rows in the build")
     # K10's passes on the ring at every bm (n-tiles 1-4), rt and ic, and
-    # K11's and K12's (ic); qmoe_pass_kernel keeps only K13's masked store
-    # (<bits, MT, NT, epilogue 0>) at each of its tiles
+    # K11's, K12's and K13's (ic); no qmoe_pass_kernel at all
     for bits in KERNEL_BITS:
         for nt in (1, 2, 3, 4):
             for z in ("MoeGateUp", "MoeDown"):
@@ -2205,13 +2223,9 @@ def main() -> int:
                             f"no {bits}-bit K10 {z} on {zeros} for {8 * nt} rows in the build")
             for z in SLOT_PASSES:
                 require(f"qmm_decode_kernel<{bits},{nt},{z},DequantFirst,UniformZero,0>"
-                        in decode_kernels, f"no {bits}-bit K11/K12 {z} for {8 * nt} rows")
-        for mt, nt in ((1, 1), (2, 4), (2, 1)):
-            require(f"qmoe_pass_kernel<{bits},{mt},{nt},0>" in kernels_ptxas,
-                    f"no {bits}-bit K13 qmoe_pass_kernel<{mt},{nt}> in the build")
-    not_k13 = [k for k in kernels_ptxas if k.startswith("qmoe_pass_kernel<")
-               and not re.fullmatch(r"qmoe_pass_kernel<\d,\d,\d,0>", k)]
-    require(not not_k13, f"qmoe_pass_kernel is built for other than K13: {not_k13}")
+                        in decode_kernels, f"no {bits}-bit K11-K13 {z} for {8 * nt} rows")
+    old_pass = [k for k in kernels_ptxas if k.startswith("qmoe_pass_kernel<")]
+    require(not old_pass, f"qmoe_pass_kernel is still built: {old_pass}")
     # K4 and K5 at M <= 16: Units over either zeros, at every layout
     for bits, planar in ((3, False), *PLANE_LAYOUTS):
         for nt in (1, 2):
@@ -2673,7 +2687,8 @@ def main() -> int:
          "launches": route_counts["qmoe_mlp"], "launches_per": "moe-routes run",
          "ms_per": per_route_layer, **moe_entry("qmoe_mlp", B, 1)},
         {"name": "qmoe_matmul (K13)", "route": "cuda",
-         "source": "gptqmodel_tpu_torch/csrc/qmoe.cu",
+         "source": ("gptqmodel_tpu_torch/csrc/qmm_decode.cuh (MoeSlotDown), "
+                    "gptqmodel_tpu_torch/csrc/qmoe.cu (launch)"),
          "replaces": "gptqmodel_tpu/ops/pallas_qmoe.py:224",
          "launches": route_counts["qmoe_matmul"], "launches_per": "moe-routes run",
          "ms_per": per_route_layer + ", gate|up and down", **moe_entry("qmoe_matmul", B, 1)},

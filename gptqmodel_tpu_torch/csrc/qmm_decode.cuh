@@ -107,7 +107,9 @@
 // in f32 or bf16, rows at or past counts[s] 0. Rank 0 of a skipped slot's
 // down cluster first writes its tile's rows 0, so that no row of the output
 // is left unwritten. Every difference from K10's passes is a compile-time
-// branch on moe_pass<Z>::slot, so K10's instantiations are as before.
+// branch on moe_pass<Z>::slot, so K10's instantiations are as before. K13
+// (qmoe.cu, gqt_qmoe_matmul) is the MoeSlotDown pass alone, on any rows and
+// any N % 8 == 0 (the last 64-column tile may be partial).
 //
 // K4 and K5 (qmatmul_planes.cu) take Z = Units<PLANAR, UniformZero> or
 // Units<PLANAR, PlaneZeros<BITS, PLANAR>>: 3, 5, 6 or 7-bit codes in 32-row
@@ -569,8 +571,8 @@ __device__ __forceinline__ int tile_offset(int c, int N) {
 // (K2's gate/up pass, out [M, N/2]), DequantFirst<either zeros> (K6),
 // MoeGateUp / MoeDown of UniformZero or DequantFirst<UniformZero> (K10's
 // passes: M = bm rows of the slot blockIdx.y, scales bf16), or MoeSlotGateUp
-// / MoeSlotDown of DequantFirst<UniformZero> (K11's and K12's, out of down
-// f32 or bf16 by SlotRows::out_f32); NT n-tiles of 8
+// / MoeSlotDown of DequantFirst<UniformZero> (K11's and K12's, down also
+// K13's; out of down f32 or bf16 by SlotRows::out_f32); NT n-tiles of 8
 // tokens (M <= 8 * NT). Grid: (column tiles) x split blocks, clusters of
 // split along x (K10: by S slots along y); dynamic shared memory
 // DecodeShape<BITS>::smem_bytes(M) (K6: k6_smem_bytes(M, g)).
@@ -1132,7 +1134,7 @@ int dispatch_decode_or_tile(KernelOf kernel_of, const void* x, int M, int K, con
 }
 
 // Launches one of K10's passes (Z = MoeGateUp<...> or MoeDown<...>), or of
-// K11's and K12's (MoeSlotGateUp<...>, MoeSlotDown<...>), over the
+// K11's and K12's (MoeSlotGateUp<...>, MoeSlotDown<...>; K13's), over the
 // S slots of the plan, bm = 8 * NT rows a slot: ceil(N / 64) column tiles
 // (gate|up: F / 32 tiles of 32 pairs) x split blocks along x, the slots
 // along y. Returns 0, -1 for bm outside 8, 16, 24, 32, S outside

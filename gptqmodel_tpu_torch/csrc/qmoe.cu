@@ -20,10 +20,10 @@
 // mapped onto the packed fields and x gathered with the same map, so no
 // permute is needed and the sums are the same products.
 //
-// K10, K11 and K12 run their passes on the decode ring of qmm_decode.cuh
-// (K1's producers, ring, consumers and rank-order cluster reduction), one
-// block per (slot, 64-column tile, cluster rank), bm = 8 .. 32 rows a slot
-// as bm / 8 n-tiles of 8 tokens, the weights the mma's A operand. K10:
+// Every pass of the four runs on the decode ring of qmm_decode.cuh (K1's
+// producers, ring, consumers and rank-order cluster reduction), one block
+// per (slot, 64-column tile, cluster rank), bm = 8 .. 32 rows a slot as
+// bm / 8 n-tiles of 8 tokens, the weights the mma's A operand. K10:
 //   gate|up (MoeGateUp) -> inner [S*bm, F] = bf16(silu(g)*u): 32 gate columns
 //              and their 32 up columns a tile, as K2's GateUpPairs; the
 //              producers gather x rows through tok, -1 a zero row;
@@ -37,41 +37,38 @@
 //              place (row m of slot s is x[s*bm + m]);
 //   down (MoeSlotDown) -> out [S*bm, D] = y in f32 or bf16, rows at or past
 //              the slot's count 0; no combine.
+// K13 (gqt_qmoe_matmul) is that down pass alone, on any slot-sorted rows
+// x [S*bm, K] and any N % 8 == 0 columns (a last 64-column tile may be
+// partial): one projection per slot, skipping by count as K12 does.
 // A block reads its slot's expert and *n_used on the device and exits at
 // once past the used slots, with its whole cluster (one slot), so the
-// routing plan never visits the host (K12, n_used NULL: a slot of count 0).
-// K11's and K12's down pass first writes a skipped slot's rows 0 (rank 0 of
-// its cluster), so the output needs no memset. rt is K1's zero type
-// (UniformZero), ic is K6's (DequantFirst<UniformZero>): bf16(bf16(c - zc)
-// * s) equals bf16((q - zc) * s) for bf16 scales, as c - zc is exact in
-// bf16 and the product exact in f32 before its one rounding. K11 and K12
+// routing plan never visits the host (K12 and K13, n_used NULL: a slot of
+// count 0). The slot passes' down first writes a skipped slot's rows 0
+// (rank 0 of its cluster), so the output needs no memset. rt is K1's zero
+// type (UniformZero), ic is K6's (DequantFirst<UniformZero>): bf16(bf16(c -
+// zc) * s) equals bf16((q - zc) * s) for bf16 scales, as c - zc is exact in
+// bf16 and the product exact in f32 before its one rounding. K11-K13
 // compute the ic contract. The groups are multiples of 128, so a stage
 // holds one bf16 scale row. The launch plans (cluster split over K, grid)
-// come from shapes only: K10's (e2e_plan) from the routed rows, K, N and the
-// SM count, never bm, so a row's sums do not depend on bm either; K11's and
-// K12's (slot_mlp_plan) from the slot bound S, K, N and the SM count, the
-// same for both, so that K11 and K12, which differ only in which slots they
-// skip, give equal bits. Two runs of any of them do too.
-//
-// K13 runs qmoe_pass_kernel: a block of 4 warps computes one slot's bm rows
-// (one or two 16-row mma tiles) against 8*NT columns of the slot's expert,
-// the warps splitting K by whole groups and adding in warp order
-// (block_reduce, no atomics), the B operand built in registers from the
-// packed words as in K1 (qmm_common.cuh), in the ic contract; out [S*bm, N],
-// rows at or past the count 0 (bf16 or f32), a slot of count 0 all 0.
+// come from shapes only (ops/qmoe.py, e2e_plan): K10's from the routed rows,
+// K, N and the SM count, never bm, so a row's sums do not depend on bm
+// either; K11's, K12's and K13's from the slot bound S in place of the rows,
+// so that K11 and K12, which differ only in which slots they skip, give
+// equal bits, and K13 on K12's inner gives K12's output. Two runs of any of
+// them do too.
 //
 // What bounds them on an H100 (3.35 TB/s, 989 TFLOP/s bf16): at decode the
 // routed experts' packed weights, read once each (K10 at B = 8, top-8 of
 // 128: about 51 distinct experts, 120 MB a layer, 0.037 ms); at prefill the
-// routed rows' operations. K13 stays the simple design: every slot block
-// reads its expert's words (slots of one expert are neighbours in launch
-// order and meet them in L2), decode tiles are 16 rows by 8 or 16 columns,
-// no wgmma, TMA or persistent scheduling. Measured by chip_smoke.py on an
-// NVIDIA H100 80GB HBM3 at 700 W (PERF.md): K10 0.083 ms a layer at B = 8
-// against its 0.037 ms byte bound, 0.94 ms at the prefill of 1024 tokens
-// against 0.095 ms; K11 and K12 0.067 ms at N = 8 against 0.034 ms and
-// 0.23 ms at N = 128 against 0.095 ms; K13 about 0.14 ms at N = 8 against
-// 0.034 ms.
+// routed rows' operations. The ring keeps 20 KB or more of weights in flight
+// a block; no wgmma, TMA or persistent scheduling. Measured by chip_smoke.py
+// on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md): K10 0.083 ms a layer at
+// B = 8 against its 0.037 ms byte bound, 0.94 ms at the prefill of 1024
+// tokens against 0.095 ms; K11 and K12 0.067 ms at N = 8 against 0.034 ms
+// and 0.23 ms at N = 128 against 0.095 ms; K13's gate|up and down together
+// 0.073-0.075 ms at N = 8 against 0.041 ms and 0.216 ms at N = 128 against
+// 0.097 ms (scripts/slot_mlp_cases.py's routing; 0.171 and 0.534 ms on
+// the register-tile kernel, qmoe_pass_kernel, that K13 ran before).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -83,175 +80,13 @@
 
 namespace gqt {
 
-// qmoe_pass_kernel's epilogue: K13's masked store, the only one (the
-// template argument keeps K13's kernel names, <bits, MT, NT, 0>)
-enum Epilogue { kStoreMasked = 0 };
 constexpr int kMaxTopk = 16;
-
-struct PassArgs {
-  const __nv_bfloat16* x;  // A rows: the slot rows
-  int ldx;
-  const int* ids;          // [S] expert of each slot
-  const int* counts;       // [S] rows of each slot, or NULL (all bm)
-  // [1] used slots, or NULL (skip by count). K13 passes NULL; without the
-  // field and its test ptxas gave K13 other code, 5-7% slower on an H100
-  // (PERF.md), so both stay
-  const int* n_used;
-  int bm, K, N;            // N: the weight's columns
-  const uint32_t* qw;      // [E, K/PF, N]
-  const __nv_bfloat16* sc; // [E, Gp, N]
-  int Gp, g;
-  float zc;
-  void* out;               // [S*bm, N]
-  int out_f32;             // float32 (1) or bf16 (0)
-};
-
-// bf16 pair of (q - zc) * s, the product exact in f32 and rounded once.
-__device__ __forceinline__ uint32_t dequant_pair(uint32_t codes, float zc, float s) {
-  const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&codes));
-  return as_u32(__floats2bfloat162_rn(__fmul_rn(__fsub_rn(c.x, zc), s),
-                                      __fmul_rn(__fsub_rn(c.y, zc), s)));
-}
-
-// The warp's product over K-rows [k_begin, k_end) (multiples of g, itself a
-// multiple of kChunk) for the slot's tile rows src[mt][h] (x row, -1 zero)
-// and columns cols[nt] .. +7, in the ic contract; acc as in qmm_common.cuh's
-// warp_tile.
-template <int BITS, int MT, int NT>
-__device__ __forceinline__ void slot_warp_tile(
-    const __nv_bfloat16* __restrict__ x, int ldx, const int (&src)[MT][2],
-    const uint32_t* __restrict__ qw, const __nv_bfloat16* __restrict__ sc, int N,
-    const int (&cols)[NT], int g, int k_begin, int k_end, float zc,
-    float (&acc)[MT][NT][4]) {
-  constexpr int PF = 32 / BITS;
-  constexpr int KI = 4 * PF;       // K-rows per iteration: 4 words of a column
-  constexpr int IT = kChunk / KI;  // iterations per chunk
-  constexpr int NX = PF / 2;       // x words per row per lane per iteration
-  constexpr int NS = PF / 4;       // mma steps per iteration
-  const int lane = threadIdx.x & 31;
-  const int t = lane & 3, gid = lane >> 2;
-
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
-  if (k_begin >= k_end) return;
-
-  uint32_t w[IT][NT], wn[IT][NT];
-  auto load_w = [&](int k0, uint32_t (&dst)[IT][NT]) {
-#pragma unroll
-    for (int it = 0; it < IT; ++it)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-        dst[it][nt] = __ldg(qw + (size_t)(k0 / PF + it * 4 + t) * N + cols[nt] + gid);
-  };
-  load_w(k_begin, w);
-
-  for (int k0 = k_begin; k0 < k_end; k0 += kChunk) {
-    if (k0 + kChunk < k_end) load_w(k0 + kChunk, wn);  // in flight during the math
-    const int grp = k0 / g;
-    float sv[NT];  // the scale of this lane's B column in the chunk's group
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-      sv[nt] = __bfloat162float(sc[(size_t)grp * N + cols[nt] + gid]);
-#pragma unroll
-    for (int it = 0; it < IT; ++it) {
-      uint32_t b[NS][NT][2];
-#pragma unroll
-      for (int s = 0; s < NS; ++s)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          b[s][nt][0] = dequant_pair(code_pair<BITS>(w[it][nt], 2 * s), zc, sv[nt]);
-          b[s][nt][1] = dequant_pair(code_pair<BITS>(w[it][nt], 2 * s + 1), zc, sv[nt]);
-        }
-      const int kx = k0 + it * KI + t * PF;
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const int ra = src[mt][0], rb = src[mt][1];
-        uint32_t xa[NX], xb[NX];
-        load_x<NX>(x + (size_t)(ra < 0 ? 0 : ra) * ldx + kx, ra >= 0, xa);
-        load_x<NX>(x + (size_t)(rb < 0 ? 0 : rb) * ldx + kx, rb >= 0, xb);
-#pragma unroll
-        for (int s = 0; s < NS; ++s) {
-          const uint32_t a[4] = {
-              __byte_perm(xa[s], xa[s + NS], 0x5410), __byte_perm(xb[s], xb[s + NS], 0x5410),
-              __byte_perm(xa[s], xa[s + NS], 0x7632), __byte_perm(xb[s], xb[s + NS], 0x7632)};
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], a, b[s][nt][0], b[s][nt][1]);
-        }
-      }
-    }
-#pragma unroll
-    for (int it = 0; it < IT; ++it)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) w[it][nt] = wn[it][nt];
-  }
-}
 
 __device__ __forceinline__ void store2(void* out, size_t i, int f32, float a, float b) {
   if (f32)
     *reinterpret_cast<float2*>(static_cast<float*>(out) + i) = make_float2(a, b);
   else
     store_bf16x2(static_cast<__nv_bfloat16*>(out) + i, a, b);
-}
-
-// One slot (blockIdx.y) against one column tile (blockIdx.x) of its expert.
-template <int BITS, int MT, int NT, int EPI>
-__global__ void __launch_bounds__(kThreads) qmoe_pass_kernel(const PassArgs a) {
-  __shared__ float red[(kWarps - 1) * MT * NT * 4 * 32];
-  constexpr int PF = 32 / BITS;
-  const int s = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int t = lane & 3, gid = lane >> 2;
-  static_assert(EPI == kStoreMasked, "K13's masked store");
-  const int cnt = a.counts ? a.counts[s] : a.bm;
-  const bool used = a.n_used ? s < *a.n_used : cnt > 0;
-
-  int cols[NT];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) cols[nt] = (blockIdx.x * NT + nt) * 8;
-  float acc[MT][NT][4];
-  if (used) {
-    const int e = a.ids[s];
-    int src[MT][2];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int i = 16 * mt + 8 * h + gid, r = s * a.bm + i;
-        src[mt][h] = i < a.bm ? r : -1;
-      }
-    const int G = a.K / a.g;
-    const int k_begin = (warp * G / kWarps) * a.g, k_end = ((warp + 1) * G / kWarps) * a.g;
-    slot_warp_tile<BITS, MT, NT>(
-        a.x, a.ldx, src, a.qw + (size_t)e * (a.K / PF) * a.N,
-        a.sc + (size_t)e * a.Gp * a.N, a.N, cols, a.g, k_begin, k_end, a.zc, acc);
-    block_reduce<MT, NT>(red, acc);
-  } else {  // a slot of count 0 writes its rows 0
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
-  }
-  if (warp != 0) return;
-  const int keep = used ? cnt : 0;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int i = 16 * mt + 8 * h + gid;
-      if (i >= a.bm) continue;
-      const size_t r = (size_t)s * a.bm + i;
-      const bool k = i < keep;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-        store2(a.out, r * a.N + cols[nt] + 2 * t, a.out_f32, k ? acc[mt][nt][2 * h] : 0.f,
-               k ? acc[mt][nt][2 * h + 1] : 0.f);
-    }
 }
 
 // K10's combine: out[n, :] = sum over token n's slot rows, ascending, from 0.
@@ -283,30 +118,6 @@ __global__ void qmoe_combine_kernel(const float* __restrict__ y, const int* __re
   }
 }
 
-template <int BITS, int MT, int NT, int EPI>
-void launch(const PassArgs& a, int S, int col_blocks, cudaStream_t st) {
-  qmoe_pass_kernel<BITS, MT, NT, EPI><<<dim3(col_blocks, S), kThreads, 0, st>>>(a);
-}
-
-// Tiles by bm: one 16-row tile (bm <= 16) with 8 columns, or two with 32
-// where N allows.
-template <int BITS>
-void pass(const PassArgs& a, int S, cudaStream_t st) {
-  if (a.bm <= 16) launch<BITS, 1, 1, kStoreMasked>(a, S, a.N / 8, st);
-  else if (a.N % 32 == 0) launch<BITS, 2, 4, kStoreMasked>(a, S, a.N / 32, st);
-  else launch<BITS, 2, 1, kStoreMasked>(a, S, a.N / 8, st);
-}
-
-int pass_bits(int bits, const PassArgs& a, int S, cudaStream_t st) {
-  switch (bits) {
-    case 2: pass<2>(a, S, st); break;
-    case 4: pass<4>(a, S, st); break;
-    case 8: pass<8>(a, S, st); break;
-    default: return -1;
-  }
-  return (int)cudaGetLastError();
-}
-
 // A cluster split that a pass over K rows in groups of g takes.
 bool split_ok(int split, int K, int g) {
   return split >= 1 && split <= kDecodeMaxSplit && split <= K / g;
@@ -314,26 +125,34 @@ bool split_ok(int split, int K, int g) {
 
 }  // namespace gqt
 
-using gqt::PassArgs;
+// Each entry point returns 0, -1 for an unsupported configuration or
+// cluster split, or the CUDA error of its launches. The caller
+// (ops/qmoe.py) checks the contract: bf16 rows of K with 16-byte aligned
+// rows, bm a multiple of 8 up to 32, g % 128 == 0 and K % g == 0, N % 8 ==
+// 0, int32 plan arrays on the device, 1 <= S <= 65535, 16-byte aligned
+// weights and scales (the ring copies them in 16-byte pieces), for K10 also
+// D % 128 == 0; and allocates the outputs and scratch.
 
-// Each entry point returns 0, -1 for an unsupported configuration, or the
-// CUDA error of its launches. The caller (ops/qmoe.py) checks the contract:
-// bf16 rows of K with 16-byte aligned rows, bm a multiple of 8 up to 32,
-// g % 128 == 0 and K % g == 0, N % 8 == 0, int32 plan arrays on the device,
-// S <= 65535; for K10, K11 and K12 also 16-byte aligned weights and scales
-// (the ring copies them in 16-byte pieces), D % 128 == 0 and the cluster
-// splits of their launch plans; and allocates the outputs and scratch.
-
-// K13: out [S*bm, N] (f32 or bf16) = each slot's rows x dequant(qw[ids[s]]).
+// K13: out [S*bm, N] (f32 or bf16) = each slot's rows x dequant(qw[ids[s]]),
+// rows at or past counts[s] 0, on the ring's MoeSlotDown pass with the
+// launch plan's cluster split (ops/qmoe.py, e2e_plan for the slot bound).
+// Also -1, before any launch, for a split outside 1 .. min(8, K / g).
 extern "C" int gqt_qmoe_matmul(const void* x, const void* ids, const void* counts, int S,
                                int bm, int K, int N, const void* qw, const void* sc, int Gp,
-                               int g, float zc, int bits, int out_f32, void* out,
+                               int g, float zc, int bits, int split, int out_f32, void* out,
                                void* stream) {
-  PassArgs a{static_cast<const __nv_bfloat16*>(x), K, static_cast<const int*>(ids),
-             static_cast<const int*>(counts), nullptr, bm, K, N,
-             static_cast<const uint32_t*>(qw), static_cast<const __nv_bfloat16*>(sc), Gp, g,
-             zc, out, out_f32};
-  return gqt::pass_bits(bits, a, S, static_cast<cudaStream_t>(stream));
+  if (!gqt::split_ok(split, K, g)) return -1;
+  gqt::MoeSlotDown<gqt::DequantFirst<gqt::UniformZero>> pass{};
+  pass.zc = zc;
+  pass.plan = {static_cast<const int*>(ids), nullptr, nullptr, nullptr, Gp};
+  pass.rows = {static_cast<const int*>(counts), out_f32};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (bits) {
+    case 2: return gqt::launch_moe_pass<2>(x, bm, K, qw, sc, N, g, pass, split, S, out, st);
+    case 4: return gqt::launch_moe_pass<4>(x, bm, K, qw, sc, N, g, pass, split, S, out, st);
+    case 8: return gqt::launch_moe_pass<8>(x, bm, K, qw, sc, N, g, pass, split, S, out, st);
+    default: return -1;
+  }
 }
 
 namespace gqt {

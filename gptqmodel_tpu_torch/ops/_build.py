@@ -137,7 +137,8 @@ def lib() -> ctypes.CDLL:
             handle.gqt_gptq_whole_solve.restype = i
             handle.gqt_gptq_block_inner.argtypes = [vp] * 4 + [i, f] + [vp] * 5
             handle.gqt_gptq_block_inner.restype = i
-            handle.gqt_qmoe_matmul.argtypes = [vp] * 3 + [i] * 4 + [vp, vp, i, i, f, i, i, vp, vp]
+            handle.gqt_qmoe_matmul.argtypes = ([vp] * 3 + [i] * 4 + [vp, vp, i, i, f]
+                                               + [i] * 3 + [vp] * 2)
             handle.gqt_qmoe_matmul.restype = i
             handle.gqt_qmoe_mlp.argtypes = ([vp] * 4 + [i] * 4 + [vp, vp, i, vp, vp, i, i, f, f]
                                             + [i] * 4 + [vp] * 3)

@@ -18,7 +18,8 @@ Kernels (``csrc/qmoe.cu``), each with its plain PyTorch version here:
   reads on the device (``_qmoe_mlp_dyn_kernel``, ``:534``); bit-equal to
   K12. Both run their two passes on the decode kernel's shared-memory ring
   (``csrc/qmm_decode.cuh``), as K10 does, with the cluster splits of
-  ``e2e_plan`` for the slot bound; K13 runs ``qmoe.cu``'s ``qmoe_pass_kernel``.
+  ``e2e_plan`` for the slot bound; K13 runs their down pass alone, with
+  the same plan, so that on K12's inner it gives K12's output bit for bit.
 - K10 ``qmoe_mlp_e2e``: the whole layer after routing: gathers each slot's
   token rows, runs the expert MLP and adds ``w·y`` into each token's row in
   float32, in slot order (ascending expert id), then rounds once
@@ -454,10 +455,19 @@ def qmoe_matmul(x_sorted, expert_ids, row_count, qw, s, *, bits, G, bm, zero_con
     _check(x_sorted, K, expert_ids, row_count, [(qw, s, bits, K // G, K, N)], bm=bm)
     if x_sorted.shape[0] != S * bm or out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"x_sorted of {x_sorted.shape[0]} rows for {S} slots of {bm}")
+    if qw.data_ptr() % 16 or s.data_ptr() % 16:
+        raise ValueError("K13 copies weights and scales in 16-byte pieces: the stack's "
+                         "qweight and scales must be 16-byte aligned")
     out = torch.empty((S * bm, N), dtype=out_dtype, device=x_sorted.device)
-    rc = _build.lib().gqt_qmoe_matmul(
+    if S == 0:
+        return out
+    lib = _build.lib()
+    # K12's plan for its down pass (the slot bound in place of the routed
+    # rows): on K12's inner K13 then sums every row as K12 does
+    plan = e2e_plan(S, E, K, N, K // G, _sm_count(x_sorted.device.index or 0))
+    rc = lib.gqt_qmoe_matmul(
         x_sorted.data_ptr(), expert_ids.data_ptr(), row_count.data_ptr(), S, bm, K, N,
-        qw.data_ptr(), s.data_ptr(), s.shape[1], K // G, float(zero_const), bits,
+        qw.data_ptr(), s.data_ptr(), s.shape[1], K // G, float(zero_const), bits, plan.split,
         int(out_dtype == torch.float32), out.data_ptr(), _stream(x_sorted))
     _build.check(rc, "qmoe_matmul")
     _build.LAUNCHES["qmoe_matmul"] += 1
@@ -465,7 +475,11 @@ def qmoe_matmul(x_sorted, expert_ids, row_count, qw, s, *, bits, G, bm, zero_con
 
 
 def _mlp_kernel(name, x_sorted, expert_ids, row_count, n_used, qw_gu, s_gu, qw_d, s_d, *,
-                bits, G_gu, G_d, F, bm, zc_gu, zc_d, out_dtype):
+                bits, G_gu, G_d, F, bm, zc_gu, zc_d, out_dtype, inner=None):
+    """K11 or K12 on the card. The gate|up pass writes ``inner [S·bm, F]``
+    bf16 and the down pass reads it: a fresh scratch, unless a check passes
+    its own buffer to hold K13 on that ``inner`` against K12's down pass (no
+    route of the port passes one)."""
     D = x_sorted.shape[1]
     S = expert_ids.shape[0]
     _check(x_sorted, D, expert_ids, row_count,
@@ -478,7 +492,11 @@ def _mlp_kernel(name, x_sorted, expert_ids, row_count, n_used, qw_gu, s_gu, qw_d
     if any(t.data_ptr() % 16 for t in (qw_gu, s_gu, qw_d, s_d)):
         raise ValueError("K11 and K12 copy weights and scales in 16-byte pieces: both "
                          "stacks' qweight and scales must be 16-byte aligned")
-    inner = torch.empty((S * bm, F), dtype=torch.bfloat16, device=x_sorted.device)
+    if inner is None:
+        inner = torch.empty((S * bm, F), dtype=torch.bfloat16, device=x_sorted.device)
+    elif (inner.shape != (S * bm, F) or inner.dtype != torch.bfloat16
+          or inner.device != x_sorted.device or not inner.is_contiguous()):
+        raise ValueError(f"inner must be contiguous bf16 [{S * bm}, {F}] on x's device")
     out = torch.empty((S * bm, D), dtype=out_dtype, device=x_sorted.device)
     if S == 0:
         return out

@@ -31,17 +31,6 @@ RT_ONLY_NS = (1, 1024)  # the ic contract is timed at N = 8 only
 SPLITS = {1: ((1, 1), (2, 2), (3, 3), (4, 3), (6, 6)), 8: ((1, 1), (2, 2))}
 
 
-def pass_of(cs, name: str) -> str:
-    """``chip_smoke.k10_pass``; a checkout from before K10 ran on the decode
-    ring names its passes by ``qmoe_pass_kernel``'s last two template
-    arguments: epilogue 1 with the row gather (gate|up), 2 without (down)."""
-    p = cs.k10_pass(name)
-    if p != "qmoe_pass_kernel":
-        return p
-    last = name.split("<", 1)[1].split(">", 1)[0].replace(" ", "").split(",")[-2:]
-    return {("1", "true"): "gate_up", ("2", "false"): "down"}.get(tuple(last), p)
-
-
 def worker(splits: bool, bms: dict) -> None:
     import torch
 
@@ -56,9 +45,8 @@ def worker(splits: bool, bms: dict) -> None:
         for rt in (True,) if N in RT_ONLY_NS else (True, False):
             kw = c["kw"](rt)
             run = lambda i, kw=kw: qmoe.qmoe_mlp_e2e(x, ids, *ops_, *sets[i], **kw)
-            forced_splits = SPLITS.get(N, ()) if splits and hasattr(qmoe, "e2e_plan") else ()
-            for forced in (None, *forced_splits):
-                plan = getattr(qmoe, "e2e_plan", None)
+            for forced in (None, *(SPLITS.get(N, ()) if splits else ())):
+                plan = qmoe.e2e_plan
                 if forced is not None:
                     qmoe.e2e_plan = lambda M_, E_, K, Nn, gs, sms=132, f=forced: (
                         dataclasses.replace(plan(M_, E_, K, Nn, gs, sms),
@@ -68,14 +56,12 @@ def worker(splits: bool, bms: dict) -> None:
                 finally:
                     if forced is not None:
                         qmoe.e2e_plan = plan
-                ms = {}
-                for name, t in k["rows"]:
-                    ms[pass_of(cs, name)] = ms.get(pass_of(cs, name), 0.0) + t
+                ms = cs.by_k10_pass(k["rows"])
                 rec = {"checkout": str(Path.cwd()), "N": N, "M": c["M"], "bm": c["bm"],
                        "rt": rt, "distinct_experts": c["distinct"], "copies": len(sets),
                        "forced_splits": forced, "ms": k["ms"], "ms_by_pass": ms,
                        "bound_ms": b_ms, "kernels": k["kernels"]}
-                if plan is not None and forced is None:
+                if forced is None:
                     rec["plan_splits"] = [plan(c["M"], gu.qweight.shape[0], D, 2 * F, 128).split,
                                           plan(c["M"], gu.qweight.shape[0], F, D, 128).split]
                 print(json.dumps(rec), flush=True)

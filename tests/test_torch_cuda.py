@@ -26,6 +26,7 @@ from gptqmodel_tpu_torch.ops.gptq_solve import (
 from gptqmodel_tpu_torch.ops.pack import pack_qweight
 from gptqmodel_tpu_torch.ops.qlinear import qlinear_forward_torch
 from gptqmodel_tpu_torch.ops.qmatmul import (
+    H100_SMS,
     qmatmul,
     qmatmul_asym,
     qmatmul_asym_plain,
@@ -1192,6 +1193,98 @@ def test_qmoe_matmul_kernel_matches_plain(cuda_device, bits, N, bm):
     assert _rel(y, ref) <= 1e-3
     pad = torch.arange(bm, device=cuda_device)[None, :] >= counts[:, None]
     assert not y.reshape(-1, bm, y.shape[1])[pad].any()
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,bm", [(8, 8), (128, 8), (128, 32)])
+def test_qmoe_matmul_down_equals_k12_bit_for_bit(cuda_device, N, bm, out_dtype):
+    """K13 on K12's own inner (K12's scratch, here a buffer the test owns)
+    is K12's down pass alone, with K12's plan: equal bits in f32 and bf16,
+    and two runs of K13 give equal bits. F = 1024 gives the down pass 8
+    groups, which the plan splits over a cluster."""
+    rng = np.random.default_rng([N, bm, int(out_dtype == torch.float32)])
+    E, D, F, k = 16, 512, 1024, 8
+    gu, down = _stacks(rng, E, D, F, 4, cuda_device)
+    xs, ids, counts = _sorted_case(rng, N, k, E, D, cuda_device, bm)
+    S = ids.shape[0]
+    assert qmoe.e2e_plan(S, E, F, D, 128, H100_SMS).split > 1
+    inner = torch.zeros((S * bm, F), dtype=torch.bfloat16, device=cuda_device)
+    y12 = qmoe._mlp_kernel("qmoe_mlp", xs, ids, counts, None, gu.qweight, gu.scales,
+                           down.qweight, down.scales, bits=4, G_gu=gu.G, G_d=down.G, F=F,
+                           bm=bm, zc_gu=gu.zero_const, zc_d=down.zero_const,
+                           out_dtype=out_dtype, inner=inner)
+    k13 = lambda: qmoe.qmoe_forward_sorted(inner, ids, counts, down, bm=bm, out_dtype=out_dtype)
+    y13 = k13()
+    torch.cuda.synchronize()
+    assert y13.dtype == out_dtype and torch.isfinite(y13).all()
+    assert torch.equal(y13, y12)
+    assert torch.equal(y13, k13())
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("bm", [8, 32])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_qmoe_matmul_partial_column_tile(cuda_device, bits, bm, out_dtype):
+    """N = 200 leaves a last 64-column tile of 8 columns: K13 matches its
+    plain version to 1e-3, and the padding rows and skipped slots are 0 in
+    an output whose memory held NaN (no memset)."""
+    rng = np.random.default_rng([bits, bm, 200])
+    E, K, N, k = 8, 512, 200, 4
+    st = qmoe.stack_packed_experts(
+        [post_init_module(random_quant_linear(rng, K, N, bits, 128, device=cuda_device))
+         for _ in range(E)])
+    xs, ids, counts = _sorted_case(rng, 40, k, E, K, cuda_device, bm)
+    torch.full((4 * xs.shape[0], N), float("nan"), device=cuda_device)
+    y = qmoe.qmoe_forward_sorted(xs, ids, counts, st, bm=bm, out_dtype=out_dtype)
+    ref = qmoe.qmoe_matmul_plain(xs, ids, counts, st.qweight, st.scales, bits=bits, G=st.G,
+                                 bm=bm, zero_const=st.zero_const, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert y.shape == (xs.shape[0], N) and torch.isfinite(y).all()
+    assert _rel(y, ref) <= 1e-3
+    pad = torch.arange(bm, device=cuda_device)[None, :] >= counts[:, None]
+    assert not y.reshape(-1, bm, N)[pad].any()
+
+
+@pytest.mark.parametrize("N,bm", [(8, 8), (300, 32)])
+def test_qmoe_matmul_runs_only_the_ring(cuda_device, N, bm):
+    """By the profiler's kernel names, K13 runs the decode ring's
+    ``MoeSlotDown`` pass and nothing else: no ``qmoe_pass_kernel``."""
+    rng = np.random.default_rng([N, bm, 13])
+    E, D, F, k = 16, 512, 256, 8
+    gu, _ = _stacks(rng, E, D, F, 4, cuda_device)
+    xs, ids, counts = _sorted_case(rng, N, k, E, D, cuda_device, bm)
+    run = lambda: qmoe.qmoe_forward_sorted(xs, ids, counts, gu, bm=bm)
+    run()
+    ring = lambda: [n for n in names if "qmm_decode_kernel<" in n and "MoeSlotDown" in n]
+    for _ in range(3):  # CUPTI now and then loses a session's records
+        names = _kernel_names(run)
+        if ring():
+            break
+    assert len(ring()) == 1 and len(names) == 1, names
+    assert not [n for n in names if "qmoe_pass_kernel" in n], names
+
+
+def test_qmoe_matmul_refuses_a_split_or_pointers_it_does_not_take(cuda_device, monkeypatch):
+    """K13's C entry refuses a cluster split outside 1 .. min(8, K / g)
+    (K = 512: 4 groups) before any launch; an unaligned qweight or scales
+    raises before the launch."""
+    rng = np.random.default_rng(47)
+    E, D, F, N, k = 16, 512, 256, 8, 8
+    gu, _ = _stacks(rng, E, D, F, 4, cuda_device)
+    xs, ids, counts = _sorted_case(rng, N, k, E, D, cuda_device)
+    plan = qmoe.e2e_plan
+    before = _build.LAUNCHES["qmoe_matmul"]
+    for split in (0, 5, 9):
+        monkeypatch.setattr(qmoe, "e2e_plan",
+                            lambda *a, s=split: dataclasses.replace(plan(*a), split=s))
+        with pytest.raises(ValueError, match="unsupported"):
+            qmoe.qmoe_forward_sorted(xs, ids, counts, gu)
+    monkeypatch.undo()
+    assert _build.LAUNCHES["qmoe_matmul"] == before
+    for bad in (dataclasses.replace(gu, qweight=_unaligned(gu.qweight)),
+                dataclasses.replace(gu, scales=_unaligned(gu.scales))):
+        with pytest.raises(ValueError, match="aligned"):
+            qmoe.qmoe_forward_sorted(xs, ids, counts, bad)
 
 
 def test_qmoe_kernels_refuse_what_they_do_not_take(cuda_device):

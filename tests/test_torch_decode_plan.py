@@ -1,6 +1,6 @@
 """The launch plan of the decode kernel of K1, K3, K4, K5, K6, K7 and K2
-(``ops/qmatmul.py``, ``decode_plan``) and of K10's, K11's and K12's passes
-(``ops/qmoe.py``, ``e2e_plan``; K11 and K12 take it for the slot bound),
+(``ops/qmatmul.py``, ``decode_plan``) and of K10's-K13's passes
+(``ops/qmoe.py``, ``e2e_plan``; K11, K12 and K13 take it for the slot bound),
 which the wrappers hand to the C entries: invariants over shapes inside
 the kernels' contract, and the split it gives each of
 Llama-3-8B's and Qwen3-30B-A3B's projections and MoE passes on an H100.
@@ -458,15 +458,30 @@ def test_k10_rings_fit_a_block():
 # ------------------------------------- K11 and K12 (qmoe_mlp_matmul(_dyn))
 
 
+# the parameters of the C entries in csrc/qmoe.cu, in order: the stand-in
+# libraries below record each call's arguments by these names, and a call
+# with another number of arguments fails
+QMOE_MLP_PARAMS = ("x", "ids", "counts", "n_used", "S", "bm", "D", "F", "qw_gu", "s_gu",
+                   "Gp_gu", "qw_d", "s_d", "Gp_d", "g", "zc_gu", "zc_d", "bits", "split_gu",
+                   "split_d", "out_f32", "inner", "out", "stream")
+QMOE_MATMUL_PARAMS = ("x", "ids", "counts", "S", "bm", "K", "N", "qw", "sc", "Gp", "g", "zc",
+                      "bits", "split", "out_f32", "out", "stream")
+
+
+def _recorder(calls, params):
+    """A stand-in C entry that records each call's arguments by name."""
+    def entry(*args):
+        calls.append(dict(zip(params, args, strict=True)))
+        return 0
+    return entry
+
+
 def _slot_mlp_call(monkeypatch, S, bm, dyn):
     """K11 (``dyn``) or K12 over S slots of Qwen3-30B-A3B at bm rows a slot
     (meta tensors, a stand-in library, fresh launch counts): the output and
-    the arguments of each ``gqt_qmoe_mlp`` call."""
+    the arguments of each ``gqt_qmoe_mlp`` call, by name."""
     calls = []
-
-    def gqt_qmoe_mlp(*args):
-        calls.append(args)
-        return 0
+    gqt_qmoe_mlp = _recorder(calls, QMOE_MLP_PARAMS)
 
     monkeypatch.setattr(_build, "lib", lambda: SimpleNamespace(gqt_qmoe_mlp=gqt_qmoe_mlp))
     monkeypatch.setattr(_build, "LAUNCHES", dict.fromkeys(_build.LAUNCHES, 0))
@@ -493,8 +508,8 @@ def _slot_mlp_splits(monkeypatch, N, bm, dyn):
     k, E = QWEN3_MOE["k"], QWEN3_MOE["E"]
     _, calls = _slot_mlp_call(monkeypatch, qmoe.slot_bound(N * k, E, bm), bm, dyn)
     assert len(calls) == 1
-    assert (calls[0][3] is not None) == dyn  # n_used: K11's, none for K12
-    return calls[0][18], calls[0][19]
+    assert (calls[0]["n_used"] is not None) == dyn  # K11's, none for K12
+    return calls[0]["split_gu"], calls[0]["split_d"]
 
 
 @pytest.mark.parametrize("dyn", [False, True])
@@ -531,6 +546,58 @@ def test_slot_mlp_plan_gives_k10_splits_at_qwen3(N):
     S = qmoe.slot_bound(N * k, E, 8)
     for K, Nout in ((D, 2 * F), (F, D)):
         assert qmoe.e2e_plan(S, E, K, Nout, 128) == qmoe.e2e_plan(N * k, E, K, Nout, 128)
+
+
+# ---------------------------------------------------- K13 (qmoe_matmul)
+
+
+def _qmoe_matmul_call(monkeypatch, S, bm, K, N):
+    """K13 over S slots of bm rows against a stack of Qwen3-30B-A3B's E
+    experts of K x N (meta tensors, a stand-in library, fresh launch
+    counts): the arguments of each ``gqt_qmoe_matmul`` call, by name."""
+    calls = []
+    gqt_qmoe_matmul = _recorder(calls, QMOE_MATMUL_PARAMS)
+
+    monkeypatch.setattr(_build, "lib", lambda: SimpleNamespace(gqt_qmoe_matmul=gqt_qmoe_matmul))
+    monkeypatch.setattr(_build, "LAUNCHES", dict.fromkeys(_build.LAUNCHES, 0))
+    monkeypatch.setattr(qmoe, "_sm_count", lambda index: H100_SMS)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: SimpleNamespace(cuda_stream=0))
+    E = QWEN3_MOE["E"]
+    meta = lambda shape, dtype: torch.empty(shape, dtype=dtype, device="meta")
+    i32, bf16 = torch.int32, torch.bfloat16
+    y = qmoe.qmoe_matmul(meta((S * bm, K), bf16), meta((S,), i32), meta((S,), i32),
+                         meta((E, K // 8, N), i32), meta((E, 16, N), bf16), bits=4,
+                         G=K // 128, bm=bm, zero_const=8.0)
+    assert y.shape == (S * bm, N)
+    return calls
+
+
+@pytest.mark.parametrize("S", [72, 256])
+def test_k13_plan_is_k11_gate_up_and_k12_down(monkeypatch, S):
+    """At Qwen3-30B-A3B's widths and the slot bounds of N = 8 and 128 tokens
+    (72 and 256 slots), K13 hands its C entry the split that K11 gives its
+    gate|up pass over [D, 2F] and K12 its down pass over [F, D], at every
+    bm: a function of the shapes alone, so that K13 on K12's inner sums each
+    row as K12 does."""
+    D, F = QWEN3_MOE["D"], QWEN3_MOE["F"]
+    for bm in K10_BMS:
+        _, (k11,) = _slot_mlp_call(monkeypatch, S, bm, True)
+        _, (k12,) = _slot_mlp_call(monkeypatch, S, bm, False)
+        (gate_up,) = _qmoe_matmul_call(monkeypatch, S, bm, D, 2 * F)
+        (down,) = _qmoe_matmul_call(monkeypatch, S, bm, F, D)
+        assert (gate_up["split"], down["split"]) == (k11["split_gu"], k12["split_d"])
+        assert down["split"] == qmoe.e2e_plan(S, QWEN3_MOE["E"], F, D, F // 128).split
+        assert gate_up["split"] == qmoe.e2e_plan(S, QWEN3_MOE["E"], D, 2 * F, D // 128).split
+
+
+def test_k13_counts_only_the_launches_it_makes(monkeypatch):
+    """K13 adds one to its launch count where it calls ``gqt_qmoe_matmul``,
+    and nothing where there is no slot and no launch."""
+    D, F = QWEN3_MOE["D"], QWEN3_MOE["F"]
+    assert len(_qmoe_matmul_call(monkeypatch, 72, 8, F, D)) == 1
+    assert _build.LAUNCHES["qmoe_matmul"] == 1
+    assert _qmoe_matmul_call(monkeypatch, 0, 8, F, D) == []
+    assert _build.LAUNCHES["qmoe_matmul"] == 0
 
 
 @pytest.mark.cuda
